@@ -1,0 +1,40 @@
+"""Weights carried across from the JAX package.
+
+``params_from_numpy(tree, device)`` takes the JAX package's param tree with
+numpy leaves — ``jax.tree.map(np.asarray, params)`` of a materialised tree,
+or the arrays of a ``checkpoint/ckpt.py`` ``arrays.npz`` put back into the
+tree — and returns the port's tree: the same dict/list structure and keys,
+the same stacked ``[L, ...]`` segment leaves, as tensors on ``device``.
+
+numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+rejects: they cross as their uint16 bit patterns and are viewed back as
+``torch.bfloat16``, bit for bit (the same trick ``ckpt.py`` uses to store
+them).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+__all__ = ["params_from_numpy"]
+
+
+def _leaf(a, device, dtype):
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:                # torch tensors must own writable memory
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """numpy-leaf param tree → tensor tree on ``device``.  ``dtype`` (e.g.
+    ``torch.float32``) casts every floating leaf; integer leaves keep theirs."""
+    return tree_map(lambda a: _leaf(a, device, dtype), tree)

@@ -1,0 +1,169 @@
+"""Serving driver of the port — a thin CLI over the continuous-batching engine.
+
+Usage:
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b            # on the card
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu
+  # open-loop scenario with a constrained KV pool (JSON metrics on stdout):
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke \\
+      --scenario mixed --requests 16 --slots 4 --kv-blocks 20
+
+The static loop (``--static``), the HTTP front door (``--listen``),
+speculation (``--spec-ngram``) and fault plans (``--fault-plan``) are not
+ported yet and exit with an error.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import numpy as np
+
+from repro_torch.models import registry
+from repro_torch.serving import (SCENARIOS, ReliabilityConfig, Request,
+                                 ServingEngine, Tracer, make_requests)
+
+__all__ = ["serve", "main"]
+
+_NOT_PORTED = ("static", "listen", "spec_ngram", "fault_plan")
+
+
+def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
+    """``batch`` random prompts of ``prompt_len`` tokens, all arriving at t=0."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)
+    return [Request(rid=i, prompt=toks[i], max_new=gen) for i in range(batch)]
+
+
+def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+          params=None, verbose: bool = True, slots: int | None = None,
+          block_size: int | None = None, **engine_kwargs):
+    """Serve ``batch`` random prompts through the engine.  Returns
+    (generated [B, gen] int32 numpy array, decode tokens/s)."""
+    slots = slots or batch
+    max_len = prompt_len + gen
+    if block_size is None:
+        block_size = next(b for b in (16, 8, 4, 2, 1) if max_len % b == 0)
+    engine = ServingEngine(cfg, slots=slots, max_len=max_len,
+                           block_size=block_size, params=params, seed=seed,
+                           **engine_kwargs)
+    reqs = _batch_requests(cfg, batch, prompt_len, gen, seed)
+    summary = engine.run(reqs)
+    generated = np.stack([np.stack(r.generated, axis=-1)
+                          for r in sorted(reqs, key=lambda r: r.rid)])
+    tps = summary["decode_tokens_per_s"]
+    if verbose:
+        print(f"[serve] engine {batch} reqs×{prompt_len}+{gen} over {slots} slots "
+              f"on {engine.device}: prefill {summary['prefill_time_s']*1e3:.0f} ms, "
+              f"decode {summary['decode_steps']} steps in "
+              f"{summary['decode_time_s']*1e3:.0f} ms  ({tps:.1f} tok/s, "
+              f"occupancy {summary['slot_occupancy']:.2f})")
+    return generated, tps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the plain path)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable shared-prompt block dedup")
+    ap.add_argument("--no-mixed", action="store_true",
+                    help="separate prefill and decode launches instead of the "
+                         "fused mixed prefill+decode dispatch")
+    ap.add_argument("--mixed-budget", type=int, default=None,
+                    help="total query-row budget of one mixed dispatch "
+                         "(default: prefill chunk + slots)")
+    ap.add_argument("--horizon", type=int, default=1,
+                    help="max decode steps fused into one dispatch")
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default=None,
+                    help="serve a synthetic open-loop workload instead")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="device KV budget in blocks (forces preemption when low)")
+    ap.add_argument("--swap-blocks", type=int, default=0)
+    ap.add_argument("--block-size", type=int, default=None)
+    ap.add_argument("--chunk", type=int, default=None, help="prefill chunk length")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run")
+    ap.add_argument("--trace-capacity", type=int, default=65536)
+    ap.add_argument("--metrics-window", type=float, default=1.0)
+    ap.add_argument("--deadline-ms", type=float, default=None)
+    ap.add_argument("--queue-timeout-ms", type=float, default=None)
+    ap.add_argument("--degrade", action="store_true",
+                    help="enable the graceful-degradation ladder")
+    ap.add_argument("--reliability", action="store_true",
+                    help="enable the PCRAM reliability layer with defaults")
+    ap.add_argument("--endurance-budget", type=int, default=None)
+    ap.add_argument("--no-wear-leveling", action="store_true")
+    ap.add_argument("--scrub-rate", type=int, default=0, metavar="N")
+    ap.add_argument("--drift-deadline-ms", type=float, default=None)
+    # options of the JAX package's serve CLI whose paths are not ported yet
+    ap.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--listen", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--spec-ngram", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--fault-plan", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for name in _NOT_PORTED:
+        if getattr(args, name):
+            ap.error(f"--{name.replace('_', '-')} is not yet ported (see ROADMAP.md)")
+    cfg = registry.get_smoke(args.arch) if args.smoke else registry.get_config(args.arch)
+
+    reliability = None
+    if (args.reliability or args.endurance_budget is not None
+            or args.scrub_rate or args.drift_deadline_ms is not None):
+        reliability = ReliabilityConfig(
+            endurance_budget=args.endurance_budget,
+            wear_leveling=not args.no_wear_leveling,
+            scrub_rate=args.scrub_rate,
+            drift_deadline_s=(args.drift_deadline_ms / 1e3
+                              if args.drift_deadline_ms is not None else None))
+    tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
+    engine_kw = dict(
+        device=args.device, n_blocks=args.kv_blocks, swap_blocks=args.swap_blocks,
+        prefill_chunk=args.chunk,
+        prefix_sharing=False if args.no_prefix_sharing else None,
+        mixed=False if args.no_mixed else None, mixed_budget=args.mixed_budget,
+        horizon=args.horizon, eos_id=args.eos_id, temperature=args.temperature,
+        top_k=args.top_k, sample_seed=args.sample_seed, tracer=tracer,
+        metrics_window=args.metrics_window, reliability=reliability,
+        deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms is not None else None),
+        queue_timeout_s=(args.queue_timeout_ms / 1e3
+                         if args.queue_timeout_ms is not None else None),
+        degrade=args.degrade)
+
+    if args.scenario:
+        spec = dataclasses.replace(SCENARIOS[args.scenario], n_requests=args.requests)
+        block_size = args.block_size or 16
+        max_len = max(spec.prompt_buckets) + spec.shared_prefix + max(spec.gen_buckets)
+        max_len = -(-max_len // block_size) * block_size
+        engine = ServingEngine(cfg, slots=args.slots or 4, max_len=max_len,
+                               block_size=block_size, seed=args.seed, **engine_kw)
+        summary = engine.run(make_requests(cfg, spec, seed=args.seed))
+        print(json.dumps({k: v for k, v in summary.items() if k != "requests"},
+                         indent=2, allow_nan=False))
+    else:
+        generated, _ = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                             gen=args.gen, seed=args.seed, slots=args.slots,
+                             block_size=args.block_size, **engine_kw)
+        print("[serve] first request tokens:", generated[0].ravel()[:16])
+    if tracer is not None:
+        tracer.export(args.trace_out)
+        print(f"[serve] wrote {len(tracer)} trace events to {args.trace_out} "
+              f"({tracer.dropped_events} dropped)")
+
+
+if __name__ == "__main__":
+    main()

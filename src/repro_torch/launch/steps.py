@@ -1,0 +1,240 @@
+"""Continuous-batching serving steps over the paged KV pool.
+
+The serving subset of the JAX package's ``launch/steps.py``: slot prefill,
+activity-masked decode, the fused mixed prefill+decode tile and the decode
+horizon.  Each ``make_*`` returns a plain function that runs eagerly on the
+caches' device; the horizon's ``lax.scan`` is a Python loop whose carry
+stays on the device (one host sync per horizon, taken by the engine).
+
+Pool leaves are updated in place; ``pos`` leaves are recomputed and merged
+with the activity mask, as the JAX steps merge their functional caches.
+Sampling draws from a ``torch.Generator`` seeded per dispatch, so sampled
+streams are deterministic for a seed but differ from ``jax.random``'s.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import BlockConfig, ModelConfig
+from repro_torch.models import lm
+from repro_torch.nn.attention import POOL_LEAVES, init_paged_cache
+from repro_torch.tree import leaves_with_path, map_with_name
+
+__all__ = [
+    "pageable_block",
+    "init_serving_caches",
+    "make_slot_prefill_step",
+    "make_serving_decode_step",
+    "make_serving_mixed_step",
+    "make_serving_decode_horizon",
+]
+
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "float16": torch.float16, "int8": torch.int8}
+
+
+def kv_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _KV_DTYPES[cfg.kv_dtype]
+
+
+def pageable_block(b: BlockConfig) -> bool:
+    """Whether a segment's attention cache can use the paged block pool
+    (non-windowed GQA)."""
+    return (b.kind in ("dense", "moe", "hymba") and b.attn is not None
+            and b.attn.kind == "gqa" and b.attn.window == 0)
+
+
+def _pool_trash_block(caches) -> Optional[int]:
+    """Index of the write-off block of the paged pool (None ⇒ no paged leaves)."""
+    for _, name, leaf in leaves_with_path(caches):
+        if name in POOL_LEAVES:
+            return leaf.shape[1] - 1
+    return None
+
+
+def init_serving_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                        block_size: int = 16, n_blocks: int = 0, device=None):
+    """Stacked serving caches: the physical block pool
+    ``k_pool/v_pool [L, n_blocks+1, block_size, H_kv, D]`` per segment plus a
+    per-slot ``pos [L, batch]`` vector.  Every segment must be pageable."""
+    if dtype is None:
+        dtype = kv_dtype(cfg)
+    if n_blocks <= 0 or not all(pageable_block(b) for b in cfg.blocks):
+        raise NotImplementedError(
+            "only fully paged serving caches (non-windowed GQA, n_blocks > 0) "
+            "are ported (see ROADMAP.md)")
+    caches = lm.init_caches(cfg, lambda b: init_paged_cache(
+        b.attn, n_blocks, block_size, dtype, device))
+    return map_with_name(
+        lambda name, leaf: (torch.zeros((*leaf.shape, batch), dtype=torch.int32,
+                                        device=leaf.device)
+                            if name == "pos" else leaf), caches)
+
+
+def _merge(active, caches, new_caches):
+    """Per-slot leaves keep their old value on inactive slots; pool leaves
+    were written in place (inactive writes went to the write-off block)."""
+    def merge(name, old, new):
+        if name in POOL_LEAVES:
+            return new
+        m = active.reshape((1, active.shape[0]) + (1,) * (old.ndim - 2))
+        return torch.where(m, new, old)
+
+    return map_with_name(merge, caches, new_caches)
+
+
+def make_slot_prefill_step(cfg: ModelConfig) -> Callable:
+    """Chunked prefill of ONE batch slot of a serving cache.
+
+    (params, caches, tokens [1,C], slot, start, reset, tables [B,P])
+        → (last_logits [1,V], caches)
+
+    Pool leaves pass whole and the chunk's K/V rows go straight into the
+    slot's blocks; the slot's ``pos`` is sliced out, reset to ``start`` when
+    ``reset`` (a fresh or mid-sequence admission behind a shared prefix),
+    advanced by the forward and written back.
+    """
+
+    def prefill_chunk(params, caches, tokens, slot: int, start: int, reset: bool,
+                      tables):
+        def slice_slot(name, leaf):
+            if name in POOL_LEAVES:
+                return leaf
+            s = leaf[:, slot:slot + 1]
+            return torch.full_like(s, start) if reset else s
+
+        sl = map_with_name(slice_slot, caches)
+        logits, sl, _ = lm.forward(params, tokens, cfg, caches=sl, start_pos=start,
+                                   tables=tables[slot:slot + 1])
+        for (_, name, leaf), (_, _, new) in zip(leaves_with_path(caches),
+                                                leaves_with_path(sl)):
+            if name not in POOL_LEAVES:
+                leaf[:, slot:slot + 1] = new
+        return logits[:, -1], caches
+
+    return prefill_chunk
+
+
+def _sample_tokens(logits, temperature: float, top_k: int,
+                  generator: Optional[torch.Generator]):
+    """Next-token pick from ``logits [B, S, V]``: greedy argmax, or
+    temperature + top-k sampling (Gumbel-max over float32 logits, noise drawn
+    from ``generator``) when ``generator`` is given and ``temperature > 0``.
+    Returns [B, 1] int32."""
+    last = logits[:, -1]
+    greedy = torch.argmax(last, dim=-1).to(torch.int32)
+    if generator is None or temperature <= 0:
+        return greedy[:, None]
+    masked = last.float()
+    if top_k:
+        kth = torch.topk(masked, top_k, dim=-1).values[..., -1:]
+        masked = torch.where(masked >= kth, masked, -1e30)
+    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    scaled = masked / max(temperature, 1e-6) + gumbel
+    return torch.argmax(scaled, dim=-1).to(torch.int32)[:, None]
+
+
+def _masked_decode(params, caches, tokens, lengths, active, tables, generator,
+                   temperature: float, cfg: ModelConfig, top_k: int):
+    """One activity-masked decode over all slots (the shared body of the
+    single-step and horizon serving decode).  Returns (next_tokens, caches)."""
+    trash = _pool_trash_block(caches)
+    tables = torch.where(active[:, None], tables, trash)
+    logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
+                                       start_pos=lengths[:, None], tables=tables)
+    caches = _merge(active, caches, new_caches)
+    return _sample_tokens(logits, temperature, top_k, generator), caches
+
+
+def make_serving_decode_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
+    """One decode step over all serving slots with an activity mask.
+
+    (params, caches, tokens [B,1], lengths [B], active [B], tables [B,P],
+     generator, temperature) → (next [B,1], caches)
+
+    Inactive slots still flow through the fixed ``[B, 1]`` forward, but their
+    writes land in the write-off block and their ``pos`` does not advance.
+    """
+
+    def decode_step(params, caches, tokens, lengths, active, tables,
+                    generator=None, temperature: float = 0.0):
+        return _masked_decode(params, caches, tokens, lengths, active, tables,
+                              generator, temperature, cfg, top_k)
+
+    return decode_step
+
+
+def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
+    """ONE dispatch carrying decode rows AND prefill-chunk rows together.
+
+    (params, caches, tokens [B,Q], lengths [B], q_lens [B], decode [B],
+     active [B], tables [B,P], generator, temperature)
+        → (next_tokens [B,1], last_logits [B,V], caches)
+
+    Every slot contributes ``q_lens[s]`` real query rows, right-aligned in
+    the ``Q`` columns: a decode slot rides at ``q_lens = 1`` (flagged in
+    ``decode``), a prefilling slot carries a chunk of its prompt.  Decode
+    rows take the paged kernel and prefill rows the gather+sdpa core, so each
+    emitted token equals what the separate dispatches produce.  Inactive
+    slots run with ``q_lens = 0``; their rows are pad rows.  ``lengths`` is
+    the per-slot cached length before this dispatch.
+    """
+
+    def mixed_step(params, caches, tokens, lengths, q_lens, decode, active,
+                   tables, generator=None, temperature: float = 0.0):
+        trash = _pool_trash_block(caches)
+        Q = tokens.shape[-1]
+        q_lens = torch.where(active, q_lens, 0)
+        tabs = torch.where(active[:, None], tables, trash)
+        # row 0 of the tile sits q_lens-Q rows before the slot's next
+        # position (pad rows get earlier, possibly negative, positions)
+        start = (lengths + q_lens - Q)[:, None]
+        logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
+                                           start_pos=start, tables=tabs,
+                                           q_lens=q_lens, q_decode=decode & active)
+        caches = _merge(active, caches, new_caches)
+        nxt = _sample_tokens(logits, temperature, top_k, generator)
+        return nxt, logits[:, -1], caches
+
+    return mixed_step
+
+
+def make_serving_decode_horizon(cfg: ModelConfig, H: int, top_k: int = 0) -> Callable:
+    """``H`` decode steps in ONE dispatch, the carry kept on the device.
+
+    (params, caches, tokens [B,1], lengths [B], active [B], remaining [B],
+     tables [B,P], generators, temperature, eos_id)
+        → (token_block [B, H], counts [B], last_tokens [B, 1], caches)
+
+    Each inner step runs the activity-masked decode and feeds its token back
+    as the next input.  A slot freezes once its ``remaining`` budget reaches
+    zero or it emits ``eos_id`` (``< 0`` disables EOS); frozen slots keep
+    flowing through the forward with their cache updates discarded.  Slot
+    ``s``'s valid tokens are ``token_block[s, :counts[s]]``.  ``generators``
+    holds one generator per inner step (None for greedy).
+    """
+
+    def horizon_step(params, caches, tokens, lengths, active, remaining, tables,
+                     generators=None, temperature: float = 0.0, eos_id: int = -1):
+        toks, emitted = [], []
+        tok, act, rem = tokens, active, remaining
+        for h in range(H):
+            gen = generators[h] if generators is not None else None
+            nxt, caches = _masked_decode(params, caches, tok, lengths, act, tables,
+                                         gen, temperature, cfg, top_k)
+            hit_eos = (nxt[:, 0] == eos_id) if eos_id >= 0 else torch.zeros_like(act)
+            step = act.to(torch.int32)
+            rem = rem - step
+            lengths = lengths + step
+            toks.append(nxt)
+            emitted.append(act)
+            tok = torch.where(act[:, None], nxt, tok)
+            act = act & (rem > 0) & ~hit_eos
+        counts = torch.stack(emitted).to(torch.int32).sum(dim=0)          # [B]
+        block = torch.cat(toks, dim=1)                                    # [B, H]
+        return block, counts, tok, caches
+
+    return horizon_step

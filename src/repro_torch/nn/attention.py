@@ -1,0 +1,313 @@
+"""Attention for the serving path: GQA over the paged physical KV pool.
+
+The port of the JAX package's ``nn/attention.py``, paged GQA only:
+
+* the physical block pool ``k_pool/v_pool [n_blocks+1, block_size, H_kv, D]``
+  is shared by every serving slot; per-slot block ``tables`` map logical
+  pages to pool blocks, and the last block is the write-off target for
+  inactive slots and pad rows (``init_paged_cache``);
+* decode rows attend in place through :func:`paged_attention` (the CUDA
+  kernel on the card); chunked prefill gathers the table's pages once and
+  runs the plain ``sdpa`` core, as the JAX package does with jnp.
+
+K/V rows are written into the pool **in place** (the JAX package returns a
+new pool array; here the cache tensors are updated where they lie, which
+saves a pool-sized copy per layer).  The returned cache dict holds the same
+pool tensors and a new ``pos`` vector.  Dense, ring-buffer, MLA and M-RoPE
+caches are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.nn.layers import apply_rope, linear, linear_spec
+from repro_torch.nn.module import ParamSpec
+
+__all__ = ["attn_spec", "attention", "init_paged_cache", "sdpa",
+           "DEFAULT_CHUNK", "KV_SCALE", "POOL_LEAVES"]
+
+# Cache-leaf names of the paged physical KV store (no slot axis).
+POOL_LEAVES = ("k_pool", "v_pool")
+
+DEFAULT_CHUNK = 512
+NEG_INF = -1e30
+# int8 KV-cache fixed-point scale: values quantize as round(x·16) ∈ [-127,127]
+# (range ±7.94, step 1/16) — ODIN's 8-bit-operand adjustment applied to the
+# decode working set.
+KV_SCALE = 16.0
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported to PyTorch yet (see ROADMAP.md)")
+
+
+def _cache_write(x: torch.Tensor, cache_dtype) -> torch.Tensor:
+    if cache_dtype == torch.int8:
+        return torch.clamp(torch.round(x.float() * KV_SCALE), -127, 127).to(torch.int8)
+    return x.to(cache_dtype)
+
+
+def _cache_read(x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if x.dtype == torch.int8:
+        return (x.float() * (1.0 / KV_SCALE)).to(compute_dtype)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameter specs and caches
+# ---------------------------------------------------------------------------
+
+def attn_spec(cfg: AttnConfig, d_model: int) -> Dict[str, ParamSpec]:
+    if cfg.kind != "gqa":
+        raise _not_ported(f"{cfg.kind} attention")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return {
+        "q": linear_spec(d_model, H * D, ("embed", "heads_flat")),
+        "k": linear_spec(d_model, Hkv * D, ("embed", "heads_flat")),
+        "v": linear_spec(d_model, Hkv * D, ("embed", "heads_flat")),
+        "o": linear_spec(H * D, d_model, ("heads_flat", "embed")),
+    }
+
+
+def init_paged_cache(cfg: AttnConfig, n_blocks: int, block_size: int,
+                     dtype=torch.bfloat16, device=None):
+    """Paged physical KV store for one GQA layer.
+
+    One block pool ``[n_blocks+1, block_size, H_kv, D]`` per K and V, shared
+    by every serving slot.  Block ``n_blocks`` is the *write-off block*:
+    inactive slots' tables point at it so their writes land somewhere
+    harmless.
+    """
+    if cfg.kind != "gqa" or cfg.window:
+        raise ValueError("paged cache supports non-windowed GQA only")
+    shape = (n_blocks + 1, block_size, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k_pool": torch.zeros(shape, dtype=dtype, device=device),
+        "v_pool": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# softmax attention cores
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos, k_pos, window: int):
+    """[.., Sq, Sk] additive bias: causal + optional sliding window."""
+    ok = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window:
+        ok &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def _sdpa(q, k, v, bias, scale):
+    """q: [B,Sq,H,D] k/v: [B,Sk,Hkv,Dk/Dv] bias: [B,1,Sq,Sk] or [1,1,Sq,Sk]."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    s = s + bias[:, :, None, :, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def _blockwise(q, k, v, q_pos, k_pos, window: int, scale: float, chunk: int):
+    """Flash-style double loop: outer over Q chunks, inner over KV chunks
+    with an online softmax (the JAX package's ``lax.map``/``lax.scan``)."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    Dv = v.shape[-1]
+    Hkv = k.shape[2]
+    G = H // Hkv
+    cq = min(chunk, Sq)
+    ck = min(chunk, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError((Sq, Sk, chunk))
+    q_pos = q_pos.expand(B, Sq) if q_pos.ndim < 2 else q_pos
+    k_pos = k_pos.expand(B, Sk) if k_pos.ndim < 2 else k_pos
+    outs = []
+    for q0 in range(0, Sq, cq):
+        qi = q[:, q0:q0 + cq].reshape(B, cq, Hkv, G, D).float()
+        qp = q_pos[:, q0:q0 + cq]
+        m = torch.full((B, Hkv, G, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, G, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, cq, Dv), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, ck):
+            ki, vi = k[:, k0:k0 + ck].float(), v[:, k0:k0 + ck].float()
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, ki) * scale
+            s = s + _mask_bias(qp, k_pos[:, k0:k0 + ck], window)[:, None, None]
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vi)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(torch.movedim(o, 3, 1).to(q.dtype))     # [B, cq, Hkv, G, Dv]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
+
+
+def sdpa(q, k, v, q_pos, k_pos, window: int = 0, chunk: int = DEFAULT_CHUNK,
+         blockwise_threshold: int = 4096):
+    """Dispatch between direct and blockwise attention. Shapes as in _sdpa."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    B = q.shape[0]
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq == 1 or (Sq * Sk) <= blockwise_threshold ** 2:
+        qp = q_pos if q_pos.ndim == 2 else q_pos.expand(B, Sq)
+        kp = k_pos.expand(B, Sk) if k_pos.ndim == 1 else k_pos
+        bias = _mask_bias(qp, kp, window)[:, None]          # [B,1,Sq,Sk]
+        return _sdpa(q, k, v, bias, scale)
+    # blockwise: pad both sequence axes to the chunk size.  Padded K rows get
+    # position 2^30 (causally invisible to every real query); padded Q rows
+    # get 2^29 (see everything real, row results are sliced away).
+    pq = (-Sq) % min(chunk, max(Sq, 1))
+    pk = (-Sk) % min(chunk, max(Sk, 1))
+    if pq or pk:
+        qp = q_pos if q_pos.ndim == 2 else q_pos.expand(B, Sq)
+        kp = k_pos if k_pos.ndim == 2 else k_pos.expand(B, Sk)
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+        qp = torch.nn.functional.pad(qp, (0, pq), value=2**29)
+        kp = torch.nn.functional.pad(kp, (0, pk), value=2**30)
+        return _blockwise(q, k, v, qp, kp, window, scale, chunk)[:, :Sq]
+    return _blockwise(q, k, v, q_pos, k_pos, window, scale, chunk)
+
+
+# ---------------------------------------------------------------------------
+# paged GQA
+# ---------------------------------------------------------------------------
+
+def _gather_attend(q, kp, vp, tables, positions, visible, window: int):
+    """Chunked-prefill numerics: gather the table's pages once, mask keys at
+    or past each slot's ``visible`` length, run the sdpa core."""
+    B = q.shape[0]
+    P = tables.shape[1]
+    _, bs, Hkv, D = kp.shape
+    tab = tables.long()
+    ck = _cache_read(kp[tab].reshape(B, P * bs, Hkv, D), q.dtype)
+    cv = _cache_read(vp[tab].reshape(B, P * bs, Hkv, D), q.dtype)
+    slot_rows = torch.arange(P * bs, dtype=torch.int32, device=q.device)[None, :]
+    k_pos = torch.where(slot_rows < visible[:, None], slot_rows, 2**30).to(torch.int32)
+    return sdpa(q, ck, cv, positions, k_pos, window)
+
+
+def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
+                    spec_decode: bool = False, q_lens=None, q_decode=None):
+    """Write the new K/V rows into the block pool and attend through it.
+
+    ``pos`` is a per-slot [B] vector; ``tables [B, P]`` maps each slot's
+    logical pages to pool blocks.  Decode (S == 1) and a speculative verify
+    tile (``spec_decode``) run :func:`paged_attention`; chunked prefill
+    (S > 1) gathers the table's pages once and runs ``sdpa``.
+
+    ``q_lens`` (mixed prefill+decode dispatch): int32 [B] real query rows per
+    slot, right-aligned in the S-row tile.  Pad rows write to the write-off
+    block and their (lower, possibly negative) positions hide every key from
+    them; ``pos`` advances by ``q_lens``.  The mixed tile runs BOTH cores
+    and selects per slot: prefill slots take the gather+sdpa numerics, slots
+    flagged in ``q_decode`` [B] take the paged kernel on the tile's last
+    column — exactly the dedicated decode dispatch's call, so mixed-on
+    streams equal mixed-off streams token for token.
+
+    Writes for rows at or past the table's page span are redirected to the
+    write-off block (a stale table entry there could alias another slot's
+    live block).
+    """
+    if tables is None:
+        raise ValueError("paged attention cache requires block tables")
+    B, S = q.shape[0], q.shape[1]
+    P = tables.shape[1]
+    pos = cache["pos"]
+    kp, vp = cache["k_pool"], cache["v_pool"]
+    cdt = kp.dtype
+    bs = kp.shape[1]
+    trash = kp.shape[0] - 1
+    kv_scale = KV_SCALE if cdt == torch.int8 else None
+    idx = torch.arange(S, dtype=torch.int32, device=q.device)[None, :]
+    if q_lens is not None:
+        off = (S - q_lens)[:, None]                                # pad rows
+        rows = pos[:, None] + idx - off                            # [B, S]
+        real = idx >= off
+        page = torch.where(real, torch.div(rows, bs, rounding_mode="floor"), P)
+        slot = torch.where(real, rows % bs, 0)
+        new_pos = pos + q_lens
+    else:
+        rows = pos[:, None] + idx                                  # [B, S]
+        page = torch.div(rows, bs, rounding_mode="floor")
+        slot = rows % bs
+        new_pos = pos + S
+    bids = torch.gather(tables, 1, torch.clamp(page, max=P - 1).long())
+    bids = torch.where(page >= P, trash, bids).long()
+    kp[bids, slot.long()] = _cache_write(k, cdt)
+    vp[bids, slot.long()] = _cache_write(v, cdt)
+    new_cache = {"k_pool": kp, "v_pool": vp, "pos": new_pos}
+    if q_lens is not None:
+        o = _gather_attend(q, kp, vp, tables, positions, new_pos, cfg.window)
+        if q_decode is not None:
+            od = paged_attention(q[:, -1], kp, vp, tables, new_pos,
+                                 window=cfg.window, kv_scale=kv_scale)
+            last = torch.where(q_decode[:, None, None], od, o[:, -1])
+            o = torch.cat([o[:, :-1], last[:, None]], dim=1)
+    elif S == 1:
+        o = paged_attention(q[:, 0], kp, vp, tables, new_pos,
+                            window=cfg.window, kv_scale=kv_scale)[:, None]
+    elif spec_decode:
+        o = paged_attention(q, kp, vp, tables, new_pos,
+                            window=cfg.window, kv_scale=kv_scale)
+    else:
+        o = _gather_attend(q, kp, vp, tables, positions, new_pos, cfg.window)
+    return o, new_cache
+
+
+def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
+                   spec_decode: bool = False, q_lens=None, q_decode=None):
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = linear(x, p["q"], odin).reshape(B, S, H, D)
+    k = linear(x, p["k"], odin).reshape(B, S, Hkv, D)
+    v = linear(x, p["v"], odin).reshape(B, S, Hkv, D)
+    if cfg.rope == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope != "none":
+        raise _not_ported(f"{cfg.rope} positions")
+    if cache is None:
+        o = sdpa(q, k, v, positions, positions, cfg.window)
+        new_cache = None
+    elif "k_pool" in cache:
+        o, new_cache = _paged_gqa_core(q, k, v, cfg, positions, cache, tables,
+                                       spec_decode=spec_decode, q_lens=q_lens,
+                                       q_decode=q_decode)
+    else:
+        raise _not_ported("the dense and ring-buffer KV caches")
+    o = o.reshape(B, S, H * D)
+    return linear(o, p["o"], odin), new_cache
+
+
+def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
+              tables=None, spec_decode: bool = False, q_lens=None, q_decode=None):
+    """Returns (output [B,S,d_model], new_cache).  ``tables`` are the per-slot
+    block tables of the paged serving cache; ``spec_decode``, ``q_lens`` and
+    ``q_decode`` as in :func:`_paged_gqa_core`."""
+    B, S, _ = x.shape
+    if cfg.kind != "gqa":
+        raise _not_ported(f"{cfg.kind} attention")
+    if q_lens is not None and (cache is None or "k_pool" not in cache):
+        raise ValueError("q_lens (mixed dispatch) requires a paged GQA cache")
+    if positions is None:
+        start = cache["pos"] if cache is not None else torch.zeros((), dtype=torch.int32)
+        if start.ndim == 1:                     # per-slot positions [B]
+            start = start[:, None]
+        positions = (start + torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+                     + torch.zeros((B, 1), dtype=torch.int32, device=x.device))
+    return _gqa_attention(p, x, cfg, positions, cache, odin, tables,
+                          spec_decode=spec_decode, q_lens=q_lens, q_decode=q_decode)

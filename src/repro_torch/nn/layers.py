@@ -1,0 +1,86 @@
+"""Core layers in exact mode: Linear, norms, embeddings, activations, RoPE.
+
+Numerics follow the JAX package's ``nn/layers.py``: norms and RoPE upcast
+to float32 and cast back to the input dtype at the same points.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.nn.module import ParamSpec
+
+__all__ = [
+    "linear_spec", "linear", "norm_spec", "rmsnorm", "layernorm",
+    "embed_spec", "embed", "activation", "rope_freqs", "apply_rope",
+]
+
+
+def linear_spec(d_in: int, d_out: int, axes: Tuple[Optional[str], Optional[str]],
+                dtype=torch.bfloat16, scale: float = 1.0) -> ParamSpec:
+    return ParamSpec((d_in, d_out), axes, dtype, init="fan_in", scale=scale)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, odin=None) -> torch.Tensor:
+    """``x @ w`` in the compute dtype (ODIN ``exact`` mode).  The ``int8`` and
+    ``sc`` modes are not ported yet."""
+    if odin is not None and odin.mode != "exact":
+        raise NotImplementedError(
+            f"ODIN mode {odin.mode!r} is not ported yet (see ROADMAP.md)")
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def norm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), ("embed",), torch.float32, init="ones")
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * g).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * g).to(x.dtype)
+
+
+def embed_spec(vocab: int, d: int) -> ParamSpec:
+    return ParamSpec((vocab, d), ("vocab", "embed"), torch.bfloat16, init="normal")
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "relu2":                      # Nemotron-4 squared ReLU
+        r = F.relu(x)
+        return r * r
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    return F.silu(x)                         # swiglu gate handled by caller
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    # x: [..., S, H, D]; angles: broadcastable to [..., S, 1, D/2]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)          # [D/2]
+    angles = positions[..., None, None].float() * freqs              # [B, S, 1, D/2]
+    return _rotate(x, angles)

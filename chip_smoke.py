@@ -19,7 +19,24 @@ Phases, each fatal on failure:
    ``check_divergence``); then 16 requests sharing a prompt prefix in a
    tight pool with a swap tier (prefix hits, copy-on-write forks, swap
    preemptions), served with horizon 1 and horizon 4, whose streams are held
-   against each other the same way; then a profile of plain decode steps.
+   against each other the same way; then a profile of plain decode steps;
+5. hold the ODIN compute kernels against their plain versions on the card:
+   ``sc_mac`` bit for bit on the int32 popcounts at the kernel bench's
+   shape, every CNN1 layer at an evaluation batch of 64 in every tiling
+   the CNN path runs (full tree, blocks of 32 and 8), CNN2's conv0, a full
+   tree at K=3000 (one tree of 4096 leaves, past the JAX wrapper's 2048)
+   and a 512x4096x512 layer; ``int8_mm`` to rtol 1e-6 at 128x256x128 and
+   4096^3, with ``torch._int_mm`` timed as its yardstick; ``int_matmul``
+   (float64 on the card) against the CPU's int32 matmul;
+6. run the paper's experiment at full width (``launch/odin_inference``):
+   train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
+   sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
+   accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
+   forwards, a warm-up forward included), profile one forward of each
+   mode, and hold one batch's logits in every ODIN mode on the card equal
+   to the CPU plain path bit for bit;
+7. run the kernel bench entry point (``launch/kernel_bench``), the path of
+   ``int8_mm``, and count its launches.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +59,11 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # float32 outside the tensor cores
+INT8_OPS = 1979e12               # dense int8 tensor-core peak
+# 32-bit integer/logic lane operations a second: 132 SMs x 64 INT32 lanes
+# x 1.98 GHz boost (the 67 TFLOP/s float32 peak is 132 x 128 lanes x 2 x
+# the same clock; Hopper has half as many INT32 lanes as FP32 lanes)
+INT32_OPS = 132 * 64 * 1.98e9
 # |kernel - plain| <= atol + rtol·|plain|, elementwise.  float32: the JAX
 # suite's bound.  bfloat16: kernel and plain version both accumulate in
 # float32 and round once to bf16, so they may part by one bf16 ulp, which is
@@ -54,9 +76,9 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean device time of ``fn()`` over ``iters`` calls, after a warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -494,12 +516,258 @@ def profile_decode(params, cfg, prompts):
         "top_device_ms_per_step": {e.key[:60]: dev_us(e) / 4e3 for e in top}}))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the ODIN compute kernels vs their plain versions
+# ---------------------------------------------------------------------------
+
+def check_sc_mac():
+    """The stochastic MAC kernel against its plain version, bit for bit on
+    the int32 popcounts, at every shape and tiling of the CNN1 path
+    (evaluation batch 64: conv0, fc2 and fc3 as a full tree and at blocks 32
+    and 8), CNN2's conv0 and the kernel bench.  Bound: the 32-bit operations
+    the function needs (one B→S gather per operand element and stream word,
+    an AND per real leaf word, a mux per tree node, a popcount per tile
+    word) against the INT32 lane rate, and the bytes (uint8 operands, int32
+    popcounts, the LUTs) against HBM."""
+    from repro_torch.core import stochastic as sc
+    from repro_torch.core.odin_linear import get_luts
+    from repro_torch.kernels.sc_mac import sc_mac_plain, sc_mac_popcounts, tile_k
+
+    spec = sc.StreamSpec()
+    lut_a, lut_w, selects = get_luts(256, 256, 0, device="cuda")
+    conv0 = 64 * 28 * 28
+    cases = [  # name, M, K, N, block_k (0: one full tree over K̂)
+        ("bench_16x64x16_tree", 16, 64, 16, 0),
+        ("cnn1_conv0_b64_tree", conv0, 25, 4, 0),
+        ("cnn1_conv0_b64_hybrid8", conv0, 25, 4, 8),
+        ("cnn1_fc2_b64_hybrid32", 64, 784, 70, 32),
+        ("cnn1_fc2_b64_hybrid8", 64, 784, 70, 8),
+        ("cnn1_fc2_b64_full_tree", 64, 784, 70, 0),
+        ("cnn1_fc3_b64_hybrid32", 64, 70, 10, 32),
+        ("cnn1_fc3_b64_hybrid8", 64, 70, 10, 8),
+        ("cnn1_fc3_b64_full_tree", 64, 70, 10, 0),
+        ("cnn2_conv0_b64_hybrid32", 64 * 22 * 22, 49, 10, 32),
+        ("full_tree_past_2048", 64, 3000, 70, 0),
+        ("structural_512x4096x512_hybrid256", 512, 4096, 512, 256),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    lines = {}
+    for name, M, K, N, block_k in cases:
+        a = torch.randint(0, 256, (M, K), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
+        w = torch.randint(0, 256, (K, N), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
+        bk = tile_k(K, block_k)
+
+        def kernel():
+            return sc_mac_popcounts(a, w, lut_a, lut_w, selects, spec, bk)
+
+        def plain():
+            return sc_mac_plain(a, w, lut_a, lut_w, selects, spec, bk)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"sc_mac {name}: kernel popcounts differ from the plain "
+                                 f"version (max abs {err})")
+        n_tiles = -(-K // bk)
+        W = spec.n_words
+        ops = M * N * W * (K + n_tiles * (bk - 1) + n_tiles) + W * (M * K + K * N)
+        nbytes = M * K + K * N + 4 * M * N + 4 * (lut_a.numel() + lut_w.numel() + bk.bit_length() * W)
+        big = M * N * bk >= 1 << 24
+        p1 = cuda_ms(plain, 1, warmup=1) if big else cuda_ms(plain, 3)
+        k1 = cuda_ms(kernel, 5 if big else 50)
+        k2 = cuda_ms(kernel, 5 if big else 50)
+        p2 = cuda_ms(plain, 1, warmup=0) if big else cuda_ms(plain, 3)
+        line = {"case": name, "M": M, "K": K, "N": N, "block_k": bk, "tiles": n_tiles,
+                "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS else "operations",
+                "int32_ops": ops, "bytes": nbytes, "library_ms": None}
+        log("sc_mac check:", json.dumps(line))
+        lines[name] = line
+    return lines
+
+
+def check_int8_mm():
+    """The int8 GEMM against its plain version (rtol 1e-6; the int32 sums
+    are exact on both sides), with ``torch._int_mm`` + the scale multiply
+    timed as the yardstick.  Bound: 2·M·N·K at the int8 tensor-core peak
+    against the bytes (int8 operands, float32 scales and output)."""
+    from repro_torch.kernels.int8_mm import int8_mm_fused, int8_mm_ref
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    lines = {}
+    for M, K, N in ((128, 256, 128), (4096, 4096, 4096)):
+        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int32).to(torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int32).to(torch.int8)
+        sa = torch.rand(M, generator=g, device="cuda") * 0.999 + 0.001
+        sw = torch.rand(N, generator=g, device="cuda") * 0.999 + 0.001
+        out, ref = int8_mm_fused(a, w, sa, sw), int8_mm_ref(a, w, sa, sw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        excess = ((out - ref).abs() / (1e-6 * ref.abs())).nan_to_num(0.0).max().item()
+        if not (math.isfinite(err) and excess <= 1.0):
+            raise AssertionError(f"int8_mm {M}x{K}x{N}: |kernel - plain| exceeds rtol 1e-6 "
+                                 f"(max abs {err:.3e})")
+
+        def library():
+            return torch._int_mm(a, w).float() * (sa[:, None] * sw[None, :])
+
+        lib_err = (library() - ref).abs().max().item()
+        ops = 2 * M * N * K
+        nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+        iters = 5 if M >= 1024 else 100
+        p1 = cuda_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
+        k1 = cuda_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
+        k2 = cuda_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
+        p2 = cuda_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
+        lib = cuda_ms(library, iters)
+        line = {"case": f"{M}x{K}x{N}", "max_abs_err": err, "max_rtol_excess": excess,
+                "library_max_abs_err": lib_err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2], "library_ms": lib,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS else "operations",
+                "tops": ops / (min(k1, k2) * 1e-3) / 1e12}
+        log("int8_mm check:", json.dumps(line))
+        lines[line["case"]] = line
+    return lines
+
+
+def check_rail_dot():
+    """``int_matmul`` in float64 on the card must equal the CPU's int32
+    matmul bit for bit: the int8 mode's rail dot (uint8 0..255 operands) at
+    CNN1's shapes, and the int8 operands of ``int8_mm``'s plain version."""
+    from repro_torch.core import stochastic as sc
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for M, K, N, lo, hi, dt in ((64 * 28 * 28, 25, 4, 0, 256, torch.uint8),
+                                (64, 784, 70, 0, 256, torch.uint8),
+                                (64, 70, 10, 0, 256, torch.uint8),
+                                (128, 256, 128, -127, 128, torch.int8)):
+        a = torch.randint(lo, hi, (M, K), generator=g, device="cuda", dtype=torch.int32).to(dt)
+        w = torch.randint(lo, hi, (K, N), generator=g, device="cuda", dtype=torch.int32).to(dt)
+        if not torch.equal(sc.int_matmul(a, w).cpu(), torch.matmul(a.cpu().int(), w.cpu().int())):
+            raise AssertionError(f"int_matmul {dt} {M}x{K}x{N}: card != CPU int32 matmul")
+    log("int_matmul (float64 on the card) == CPU int32 matmul: uint8 rails at CNN1's "
+        "shapes, int8 at 128x256x128")
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the CNN path and the kernel bench
+# ---------------------------------------------------------------------------
+
+def cnn_experiment():
+    """The paper's experiment through ``launch/odin_inference.run`` on the
+    card, with the JAX suite's accuracy thresholds (tests/test_system.py)."""
+    from repro_torch.core.odin_linear import get_luts
+    from repro_torch.kernels.sc_mac import sc_mac_cuda
+    from repro_torch.launch import odin_inference as oi
+    from repro_torch.nn.cnn import cnn_forward, mac_layers
+
+    n_eval = 8
+    sc_mac_cuda.launches = 0
+    out = oi.run(steps=300, batch=64, n_eval=n_eval, eval_batch=64, device="cuda", log=log)
+    torch.cuda.synchronize()
+    launches = sc_mac_cuda.launches
+    res, topo = out["result"], out["topology"]
+    acc = res["accuracy"]
+    forwards = n_eval + 1                       # the evaluation batches and one warm-up
+    expected = sum((4 if cfg.signed_activations else 2) * mac_layers(topo) * forwards
+                   for _, cfg in oi.MODES if cfg is not None and cfg.mode == "sc")
+    if launches != expected:
+        raise AssertionError(f"sc_mac launches {launches} != rails x MAC layers x forwards "
+                             f"= {expected}")
+    checks = {"fp32 > 0.8": acc["fp32"] > 0.8,
+              "|fp32 - int8| < 0.05": abs(acc["fp32"] - acc["int8"]) < 0.05,
+              "sc hybrid/8 > 0.55": acc["sc_hybrid8"] > 0.55,
+              "sc full tree < 0.5": acc["sc_full_tree"] < 0.5}
+    # one batch on the card (kernels) against the CPU plain path, bit for bit,
+    # in every ODIN mode
+    b = out["batches"][0]
+    params_cpu = {k: v.detach().cpu() for k, v in out["params"].items()}
+    parity = {}
+    for name, cfg in oi.MODES:
+        if cfg is None:
+            continue
+        with torch.no_grad():
+            card = cnn_forward(out["params"], b["image"], topo, cfg).cpu()
+            cpu = cnn_forward(params_cpu, b["image"].cpu(), topo, cfg,
+                              luts=get_luts(256, 256, 0, device="cpu"))
+        parity[name] = (card - cpu).abs().max().item()
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"{name} logits: card != CPU plain path "
+                                 f"(max abs {parity[name]:.3e})")
+    line = dict(res, sc_mac_launches=launches, sc_mac_launches_expected=expected,
+                thresholds=checks, card_vs_cpu_max_abs=parity)
+    log("CNN1 experiment:", json.dumps(line))
+    profile_cnn(out["params"], b["image"], topo)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"CNN1 accuracy thresholds failed: {failed}; {acc}")
+    return launches, line
+
+
+def profile_cnn(params, images, topo):
+    """Device time against wall time of one CNN1 forward (batch 64) in each
+    ODIN mode: four forwards timed unprofiled, four under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import odin_inference as oi
+    from repro_torch.nn.cnn import cnn_forward
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    report = {}
+    for name, cfg in oi.MODES:
+        def four():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                for _ in range(4):
+                    cnn_forward(params, images, topo, cfg)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / 4
+
+        four()
+        wall = four()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            four()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        busy = sum(dev_us(e) for e in kernels) / 4e3
+        top = sorted(kernels, key=dev_us, reverse=True)[:3]
+        report[name] = {"wall_ms": wall * 1e3, "device_ms": busy,
+                        "device_busy_share": busy / (wall * 1e3),
+                        "device_ops": sum(e.count for e in kernels) / 4,
+                        "top_device_ms": {e.key[:50]: dev_us(e) / 4e3 for e in top}}
+    log("CNN1 forward profile (batch 64, per forward):", json.dumps(report))
+
+
+def kernel_bench():
+    """The kernel bench entry point, the main path of ``int8_mm``."""
+    from repro_torch.kernels.int8_mm import int8_mm_cuda
+    from repro_torch.launch import kernel_bench as kb
+
+    int8_mm_cuda.launches = 0
+    out = kb.run(device="cuda")
+    torch.cuda.synchronize()
+    launches = int8_mm_cuda.launches
+    if launches <= 0:
+        raise AssertionError("kernel bench: int8_mm was not launched")
+    log("kernel bench:", json.dumps(dict(out, int8_mm_launches=launches)))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels.int8_mm import int8_mm as int8_mod
     from repro_torch.kernels.paged_attn import ops as paged_ops
+    from repro_torch.kernels.sc_mac import sc_mac as sc_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -509,14 +777,23 @@ def main():
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
+    log(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    text = build.build(paged_ops.SOURCE)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    log(f"--- nvcc {paged_ops.SOURCE.name} ---\n{text.strip()}")
+    texts = build.build_all([paged_ops.SOURCE, sc_mod.SOURCE, int8_mod.SOURCE])
+    log(f"kernel build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s")
+    for source, text in texts.items():
+        log(f"--- nvcc {source.name} ---\n{text.strip()}")
 
     report = check_paged_attn()
+    sc_lines = check_sc_mac()
+    int8_lines = check_int8_mm()
+    check_rail_dot()
     small_model_card_vs_cpu()
     launches, _ = serve_full_width()
+    sc_launches, _ = cnn_experiment()
+    int8_launches = kernel_bench()
+    sc_rep = sc_lines["cnn1_conv0_b64_tree"]
+    int8_rep = int8_lines["4096x4096x4096"]
     kernels = [{
         "name": "paged_attn", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
@@ -525,6 +802,24 @@ def main():
         "ms": report["ms"], "plain_ms": report["plain_ms"],
         "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
         "library_ms": report["library_ms"],
+    }, {
+        "name": "sc_mac", "route": "cuda", "status": "ok",
+        "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",
+        "replaces": "src/repro/kernels/sc_mac/sc_mac.py:60",
+        "launches": sc_launches, "shape": sc_rep["case"],
+        "max_abs_err": max(x["max_abs_err"] for x in sc_lines.values()),
+        "ms": sc_rep["ms"], "plain_ms": sc_rep["plain_ms"],
+        "bound_ms": sc_rep["bound_ms"], "bound_by": sc_rep["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "int8_mm", "route": "cuda", "status": "ok",
+        "source": "src/repro_torch/kernels/int8_mm/csrc/int8_mm.cu",
+        "replaces": "src/repro/kernels/int8_mm/int8_mm.py:32",
+        "launches": int8_launches, "shape": int8_rep["case"],
+        "max_abs_err": max(x["max_abs_err"] for x in int8_lines.values()),
+        "ms": int8_rep["ms"], "plain_ms": int8_rep["plain_ms"],
+        "bound_ms": int8_rep["bound_ms"], "bound_by": int8_rep["bound_by"],
+        "library_ms": int8_rep["library_ms"],
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -10,6 +10,11 @@ numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 rejects: they cross as their uint16 bit patterns and are viewed back as
 ``torch.bfloat16``, bit for bit (the same trick ``ckpt.py`` uses to store
 them).
+
+``luts_from_numpy(lut_a, lut_w, selects, device)`` carries the JAX package's
+SC tables (``core/odin_linear.py get_luts``, uint32 words) across as the
+int32 tensors with the same bit patterns, which is how the port holds
+stream words.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "luts_from_numpy"]
 
 
 def _leaf(a, device, dtype):
@@ -38,3 +43,15 @@ def params_from_numpy(tree, device, dtype=None):
     """numpy-leaf param tree → tensor tree on ``device``.  ``dtype`` (e.g.
     ``torch.float32``) casts every floating leaf; integer leaves keep theirs."""
     return tree_map(lambda a: _leaf(a, device, dtype), tree)
+
+
+def luts_from_numpy(lut_a, lut_w, selects, device="cpu"):
+    """The JAX ``(lut_a, lut_w, selects)`` uint32 tables → the port's int32
+    tables on ``device``, bit for bit."""
+    def words(a):
+        a = np.ascontiguousarray(np.asarray(a))
+        if a.dtype != np.uint32:
+            raise ValueError(f"SC tables are uint32 words, got {a.dtype}")
+        return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+    return words(lut_a), words(lut_w), words(selects)

@@ -1,0 +1,1 @@
+from repro_torch.data.synthetic import digits_batch

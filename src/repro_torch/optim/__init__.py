@@ -1,0 +1,1 @@
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (init_serving_caches,
                                       make_serving_decode_horizon,
                                       make_serving_decode_step,
@@ -48,21 +49,7 @@ from repro_torch.serving.scheduler import (PrefixCache, PrefixGrant, Request,
 from repro_torch.serving.trace import NULL_TRACER, MetricsRegistry
 from repro_torch.tree import leaves_with_path
 
-__all__ = ["ServingEngine", "resolve_device"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another.  Raises when CUDA is asked for and absent — no quiet fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; the port runs on the card by "
-                "default — pass device='cpu' to run the plain PyTorch path")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+__all__ = ["ServingEngine"]
 
 
 def _not_ported(what: str) -> NotImplementedError:

@@ -4,10 +4,25 @@
 Phases, each fatal on failure:
 
 1. report the card (``nvidia-smi`` name and power limit), the torch/CUDA
-   versions, and build the port's CUDA kernel from ``src/`` with ``nvcc``;
+   versions, and build the port's four CUDA kernels from ``src/`` with
+   ``nvcc``, one process each, in parallel;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and time kernel, plain version and the
-   library yardstick against the kernel's memory bound;
+   shapes its paths give it, and time kernel, plain version and the library
+   yardstick against the kernel's bound: ``paged_attn`` at the serving
+   path's shapes; ``act_pool`` bit for bit through its own entry point on
+   CNN1's and CNN2's conv maps at batch 64 and a VGG-scale map in every
+   activation and pooling kind, plus pools of 3 and 4, 3 and 10 channels,
+   the whole tanh domain, average ties and the int32 extremes; ``sc_mac``
+   bit for bit at the kernel bench's shape, every CNN1 layer at an
+   evaluation batch of 64 in every tiling the CNN path runs (full tree,
+   blocks of 32 and 8), CNN2's conv0, a full tree at K=3000 (one tree of
+   4096 leaves, past the JAX wrapper's 2048) and a 512x4096x512 layer;
+   ``odin_linear`` at phi4-mini-3.8b's seven projections (sc: kernel
+   route == plain route at 2, 8, 16 and 32 rows, the row counts of the sc
+   serving path; int8: card == CPU at 8 rows; bit for bit; ``sc_mac`` timed
+   at each projection at 8 rows); ``int8_mm`` to rtol 1e-6 at 128x256x128 and 4096^3,
+   with ``torch._int_mm`` timed as its yardstick; ``int_matmul`` (float64
+   on the card) against the CPU's int32 matmul;
 3. check a small model end to end: the engine on the card (CUDA kernel) and
    on the CPU (plain path) must emit the same greedy tokens in float32;
 4. serve full-width phi4-mini-3.8b (all 32 layers, random bf16 weights from a
@@ -20,23 +35,28 @@ Phases, each fatal on failure:
    tight pool with a swap tier (prefix hits, copy-on-write forks, swap
    preemptions), served with horizon 1 and horizon 4, whose streams are held
    against each other the same way; then a profile of plain decode steps;
-5. hold the ODIN compute kernels against their plain versions on the card:
-   ``sc_mac`` bit for bit on the int32 popcounts at the kernel bench's
-   shape, every CNN1 layer at an evaluation batch of 64 in every tiling
-   the CNN path runs (full tree, blocks of 32 and 8), CNN2's conv0, a full
-   tree at K=3000 (one tree of 4096 leaves, past the JAX wrapper's 2048)
-   and a 512x4096x512 layer; ``int8_mm`` to rtol 1e-6 at 128x256x128 and
-   4096^3, with ``torch._int_mm`` timed as its yardstick; ``int_matmul``
-   (float64 on the card) against the CPU's int32 matmul;
-6. run the paper's experiment at full width (``launch/odin_inference``):
+5. serve the same model in ODIN's int8 mode (8 prompts of 512 tokens, 32
+   greedy tokens; decode profile; agreement with exact mode reported) and
+   sc mode (2 prompts of 16 tokens, 4 greedy tokens; every forward launches
+   ``sc_mac`` 4 rails x 7 projections x 32 layers times; seconds per
+   dispatch; sc_mac's share of a decode step's device time);
+6. the guarded decode step: a nan_logits fault plan quarantines exactly one
+   request while the co-batched streams keep the fault-free run's; then a
+   generated chaos plan with the degradation ladder on runs to completion
+   with every request terminal;
+7. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-7. run the kernel bench entry point (``launch/kernel_bench``), the path of
+8. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after; the kernels line gives each kernel's total and, where it has more
+than one path, the count of each.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.
@@ -298,15 +318,13 @@ def small_model_card_vs_cpu():
     log(f"small model (d_head 64, float32): card == cpu greedy streams, {n} tokens")
 
 
-def serve_full_width():
-    from repro_torch.kernels.paged_attn import paged_attention
+def load_phi4():
+    """Full-width phi4-mini-3.8b (all 32 layers) with random bf16 weights from
+    a seeded generator on the card, and eight 512-token prompts."""
     from repro_torch.models import lm, registry
     from repro_torch.nn.module import count_params, materialize
-    from repro_torch.serving import Request, ServingEngine
-    from repro_torch.serving import engine as engine_mod
 
     cfg = registry.get_config("phi4-mini-3.8b")
-    n_layers = cfg.n_layers
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = materialize(lm.param_spec(cfg), gen, "cuda")
@@ -315,55 +333,88 @@ def serve_full_width():
         f"materialized in bf16 on the card in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = list(rng.integers(0, cfg.vocab, size=(8, 512), dtype=np.int32))
+    return cfg, params, prompts, rng
 
+
+def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True,
+          timed=False, **kw):
+    """Serve ``prompts`` (all arriving at once) greedily through the port's
+    engine on the card.  Every forward that carries a decode row or a mixed
+    tile (plain, guarded or horizon decode, mixed dispatch) must launch
+    ``paged_attention`` once per layer, and every forward of an int8/sc
+    engine runs ``odin_linear`` on each projection; the launch counts are
+    set to 0 just before the run and read just after it.  ``timed`` records
+    each dispatch's wall time (synchronised)."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.kernels.sc_mac import sc_mac_cuda
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import engine as engine_mod
+
+    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16,
+                        prefill_chunk=256, params=params, **kw)
+    calls = {"forwards": 0, "prefill_forwards": 0}
+    times = {"_decode": [], "_mixed": [], "_guarded": [], "_prefill": []}
+    for attr in times:
+        fn = getattr(eng, attr)
+
+        def counted(*a, _fn=fn, _attr=attr, **k):
+            calls["prefill_forwards" if _attr == "_prefill" else "forwards"] += 1
+            if timed:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            out = _fn(*a, **k)
+            if timed:
+                torch.cuda.synchronize()
+                times[_attr].append(time.perf_counter() - t)
+            return out
+        setattr(eng, attr, counted)
+    make_horizon = engine_mod.make_serving_decode_horizon
+
+    def counted_horizon(cfg_, H, **k):
+        fn = make_horizon(cfg_, H, **k)
+
+        def step(*a, **kk):
+            calls["forwards"] += H
+            return fn(*a, **kk)
+        return step
+    reqs = [Request(rid=i, prompt=pr, max_new=max_new) for i, pr in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    engine_mod.make_serving_decode_horizon = counted_horizon
+    paged_attention.launches = 0
+    sc_mac_cuda.launches = 0
+    try:
+        t = time.perf_counter()
+        summary = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, sc_launches = paged_attention.launches, sc_mac_cuda.launches
+    finally:
+        engine_mod.make_serving_decode_horizon = make_horizon
+    streams = {r.rid: [int(np.ravel(x)[0]) for x in r.generated] for r in reqs}
+    for r in reqs:
+        if all_done and (r.state.name != "DONE" or len(streams[r.rid]) != max_new):
+            raise AssertionError(f"request {r.rid} ended {r.state} with "
+                                 f"{len(streams[r.rid])}/{max_new} tokens")
+        if not r.terminal:
+            raise AssertionError(f"request {r.rid} did not reach a terminal state")
+        if not all(0 <= x < cfg.vocab for x in streams[r.rid]):
+            raise AssertionError(f"request {r.rid}: token out of range")
+    if launches <= 0 or launches != cfg.n_layers * calls["forwards"]:
+        raise AssertionError(f"paged_attention launches {launches} != "
+                             f"{cfg.n_layers} x {calls['forwards']} forwards")
+    return dict(summary=summary, streams=streams, launches=launches,
+                sc_launches=sc_launches, forwards=calls["forwards"],
+                prefill_forwards=calls["prefill_forwards"], wall=wall,
+                peak=torch.cuda.max_memory_allocated(), requests=reqs, times=times)
+
+
+def serve_full_width(cfg, params, prompts, rng):
+    """Exact-mode serving at full width: the smoke traffic with mixed
+    dispatch on and off, pool pressure at horizon 1 and 4, a decode profile.
+    Returns each run's ``paged_attention`` launches and the mixed run's
+    streams."""
     def run(prompts, max_new, **kw):
-        """Serve ``prompts`` (all arriving at once) greedily; every forward
-        that carries a decode row or a mixed tile must launch the kernel
-        once per layer."""
-        eng = ServingEngine(cfg, slots=8, max_len=1024, block_size=16,
-                            prefill_chunk=256, params=params, **kw)
-        calls = {"forwards": 0}
-        for attr in ("_decode", "_mixed"):
-            fn = getattr(eng, attr)
-
-            def counted(*a, _fn=fn, **k):
-                calls["forwards"] += 1
-                return _fn(*a, **k)
-            setattr(eng, attr, counted)
-        make_horizon = engine_mod.make_serving_decode_horizon
-
-        def counted_horizon(cfg_, H, **k):
-            fn = make_horizon(cfg_, H, **k)
-
-            def step(*a, **kk):
-                calls["forwards"] += H
-                return fn(*a, **kk)
-            return step
-        reqs = [Request(rid=i, prompt=pr, max_new=max_new) for i, pr in enumerate(prompts)]
-        torch.cuda.reset_peak_memory_stats()
-        engine_mod.make_serving_decode_horizon = counted_horizon
-        paged_attention.launches = 0
-        try:
-            t = time.perf_counter()
-            summary = eng.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            launches = paged_attention.launches
-        finally:
-            engine_mod.make_serving_decode_horizon = make_horizon
-        streams = {r.rid: [int(np.ravel(x)[0]) for x in r.generated] for r in reqs}
-        for r in reqs:
-            if r.state.name != "DONE" or len(streams[r.rid]) != max_new:
-                raise AssertionError(f"request {r.rid} ended {r.state} with "
-                                     f"{len(streams[r.rid])}/{max_new} tokens")
-            if not all(0 <= x < cfg.vocab for x in streams[r.rid]):
-                raise AssertionError(f"request {r.rid}: token out of range")
-        if launches <= 0 or launches != n_layers * calls["forwards"]:
-            raise AssertionError(f"paged_attention launches {launches} != "
-                                 f"{n_layers} x {calls['forwards']} forwards")
-        return dict(summary=summary, streams=streams, launches=launches,
-                    forwards=calls["forwards"], wall=wall,
-                    peak=torch.cuda.max_memory_allocated())
+        return serve(cfg, params, prompts, max_new, **kw)
 
     def compare(base, other, prompts, what):
         n_equal = sum(base[rid] == other[rid] for rid in base)
@@ -421,7 +472,10 @@ def serve_full_width():
         raise AssertionError("horizon 4: no dispatch ran more than one decode step")
     compare(runs[1]["streams"], runs[4]["streams"], pressure, "horizon 4 vs horizon 1")
     profile_decode(params, cfg, prompts)
-    return a["launches"], result
+    launches = {"serve_exact": a["launches"], "serve_exact_unmixed": b["launches"],
+                "serve_pressure_h1": runs[1]["launches"],
+                "serve_pressure_h4": runs[4]["launches"]}
+    return launches, a["streams"]
 
 
 # bf16 logits of magnitude 4-8 carry 2^-5 steps; 0.125 is four of them.  The
@@ -455,40 +509,43 @@ def check_divergence(params, cfg, prompt, a, b, rid):
                              f"without a near tie: {report}")
 
 
-def profile_decode(params, cfg, prompts):
-    """Plain decode steps of the full-width engine, 8 slots: after four
-    warm-up steps, four timed without the profiler, four under it and four
-    more without it.  Reports device time by kernel, device operations per
-    step, and the busy share of each wall time.  Kernel durations come from
-    the profiled steps; the unprofiled share divides them by the mean wall
-    time of the unprofiled steps around them, same engine and batch."""
+def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
+                   label="decode profile (8 slots, 4 steps each block)"):
+    """Plain decode steps of the full-width engine, one slot a prompt: after
+    ``block`` warm-up steps, ``block`` timed without the profiler, ``block``
+    under it and ``block`` more without it.  Reports device time by kernel,
+    device operations per step, and the busy share of each wall time.
+    Kernel durations come from the profiled steps; the unprofiled share
+    divides them by the mean wall time of the unprofiled steps around them,
+    same engine and batch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request, ServingEngine
-    eng = ServingEngine(cfg, slots=8, max_len=1024, block_size=16,
+    slots = len(prompts)
+    eng = ServingEngine(cfg, slots=slots, max_len=1024, block_size=16,
                         prefill_chunk=256, params=params, mixed=False)
-    for i in range(8):
-        eng.submit(Request(rid=i, prompt=prompts[i], max_new=32))
+    for i in range(slots):
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new=max_new))
     while any(r.n_generated < 2 for r in eng.sched.running.values()) \
-            or len(eng.sched.running) < 8:
+            or len(eng.sched.running) < slots:
         eng.step()
 
-    def four_steps():
+    def steps():
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for _ in range(4):
+        for _ in range(block):
             eng.step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t) / 4
+        return (time.perf_counter() - t) / block
 
-    four_steps()
-    before = four_steps()
+    steps()
+    before = steps()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_prof = four_steps()
-    after = four_steps()
+        wall_prof = steps()
+    after = steps()
     wall_plain = (before + after) / 2
-    if len(eng.sched.running) != 8:
+    if len(eng.sched.running) != slots:
         raise AssertionError("decode profile: a request finished inside the timed steps")
     events = prof.key_averages()
 
@@ -498,22 +555,27 @@ def profile_decode(params, cfg, prompts):
     # device-side events only: an operator's own row repeats its kernels' time
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    busy = sum(dev_us(e) for e in kernels) / 4e6
+    busy = sum(dev_us(e) for e in kernels) / (block * 1e6)
     if busy <= 0:
         raise AssertionError("decode profile: the profiler recorded no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    with open(os.path.join(HERE, "build", "profile_decode.txt"), "w") as fh:
+    name = f"profile_decode_{cfg.odin_mode}.txt"
+    with open(os.path.join(HERE, "build", name), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
-    log("decode profile (8 slots, 4 steps each block):", json.dumps({
+    report = {
         "wall_ms_per_step_unprofiled": wall_plain * 1e3,
         "wall_ms_per_step_unprofiled_runs": [before * 1e3, after * 1e3],
         "wall_ms_per_step_profiled": wall_prof * 1e3,
         "device_busy_ms_per_step": busy * 1e3,
         "device_busy_share_unprofiled": busy / wall_plain,
         "device_busy_share_profiled": busy / wall_prof,
-        "device_ops_per_step": sum(e.count for e in kernels) / 4,
-        "top_device_ms_per_step": {e.key[:60]: dev_us(e) / 4e3 for e in top}}))
+        "device_ops_per_step": sum(e.count for e in kernels) / block,
+        "sc_mac_device_share": sum(dev_us(e) for e in kernels if "sc_mac" in e.key)
+        / (busy * block * 1e6),
+        "top_device_ms_per_step": {e.key[:60]: dev_us(e) / (block * 1e3) for e in top}}
+    log(f"{label}:", json.dumps(report))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -529,12 +591,8 @@ def check_sc_mac():
     an AND per real leaf word, a mux per tree node, a popcount per tile
     word) against the INT32 lane rate, and the bytes (uint8 operands, int32
     popcounts, the LUTs) against HBM."""
-    from repro_torch.core import stochastic as sc
-    from repro_torch.core.odin_linear import get_luts
-    from repro_torch.kernels.sc_mac import sc_mac_plain, sc_mac_popcounts, tile_k
+    from repro_torch.kernels.sc_mac import tile_k
 
-    spec = sc.StreamSpec()
-    lut_a, lut_w, selects = get_luts(256, 256, 0, device="cuda")
     conv0 = 64 * 28 * 28
     cases = [  # name, M, K, N, block_k (0: one full tree over K̂)
         ("bench_16x64x16_tree", 16, 64, 16, 0),
@@ -555,38 +613,51 @@ def check_sc_mac():
     for name, M, K, N, block_k in cases:
         a = torch.randint(0, 256, (M, K), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
         w = torch.randint(0, 256, (K, N), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
-        bk = tile_k(K, block_k)
-
-        def kernel():
-            return sc_mac_popcounts(a, w, lut_a, lut_w, selects, spec, bk)
-
-        def plain():
-            return sc_mac_plain(a, w, lut_a, lut_w, selects, spec, bk)
-
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"sc_mac {name}: kernel popcounts differ from the plain "
-                                 f"version (max abs {err})")
-        n_tiles = -(-K // bk)
-        W = spec.n_words
-        ops = M * N * W * (K + n_tiles * (bk - 1) + n_tiles) + W * (M * K + K * N)
-        nbytes = M * K + K * N + 4 * M * N + 4 * (lut_a.numel() + lut_w.numel() + bk.bit_length() * W)
-        big = M * N * bk >= 1 << 24
-        p1 = cuda_ms(plain, 1, warmup=1) if big else cuda_ms(plain, 3)
-        k1 = cuda_ms(kernel, 5 if big else 50)
-        k2 = cuda_ms(kernel, 5 if big else 50)
-        p2 = cuda_ms(plain, 1, warmup=0) if big else cuda_ms(plain, 3)
-        line = {"case": name, "M": M, "K": K, "N": N, "block_k": bk, "tiles": n_tiles,
-                "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS) * 1e3,
-                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS else "operations",
-                "int32_ops": ops, "bytes": nbytes, "library_ms": None}
-        log("sc_mac check:", json.dumps(line))
-        lines[name] = line
+        lines[name] = time_sc_mac(name, a, w, tile_k(K, block_k))
     return lines
+
+
+def time_sc_mac(name, a, w, bk):
+    """``sc_mac`` on uint8 rails ``a`` [M, K] and ``w`` [K, N] in trees of
+    ``bk`` leaves: kernel == plain version bit for bit, both timed
+    (plain, kernel, kernel, plain), and the bound of the function."""
+    from repro_torch.core import stochastic as sc
+    from repro_torch.core.odin_linear import get_luts
+    from repro_torch.kernels.sc_mac import sc_mac_plain, sc_mac_popcounts
+
+    spec = sc.StreamSpec()
+    lut_a, lut_w, selects = get_luts(256, 256, 0, device="cuda")
+    (M, K), N = a.shape, w.shape[1]
+
+    def kernel():
+        return sc_mac_popcounts(a, w, lut_a, lut_w, selects, spec, bk)
+
+    def plain():
+        return sc_mac_plain(a, w, lut_a, lut_w, selects, spec, bk)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"sc_mac {name}: kernel popcounts differ from the plain "
+                             f"version (max abs {err})")
+    n_tiles = -(-K // bk)
+    W = spec.n_words
+    ops = M * N * W * (K + n_tiles * (bk - 1) + n_tiles) + W * (M * K + K * N)
+    nbytes = M * K + K * N + 4 * M * N + 4 * (lut_a.numel() + lut_w.numel() + bk.bit_length() * W)
+    big = M * N * bk >= 1 << 24
+    p1 = cuda_ms(plain, 1, warmup=1) if big else cuda_ms(plain, 3)
+    k1 = cuda_ms(kernel, 5 if big else 50)
+    k2 = cuda_ms(kernel, 5 if big else 50)
+    p2 = cuda_ms(plain, 1, warmup=0) if big else cuda_ms(plain, 3)
+    line = {"case": name, "M": M, "K": K, "N": N, "block_k": bk, "tiles": n_tiles,
+            "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS else "operations",
+            "int32_ops": ops, "bytes": nbytes, "library_ms": None}
+    log("sc_mac check:", json.dumps(line))
+    return line
 
 
 def check_int8_mm():
@@ -760,11 +831,344 @@ def kernel_bench():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the act_pool kernel
+# ---------------------------------------------------------------------------
+
+def _avg_tie_windows(device):
+    """2x2 windows whose ReLU'd sums run over 0..1020 (every sum 2 mod 4 is
+    an exact .5 average), zeros stored as -5 for the ReLU to clip."""
+    sums = torch.arange(0, 1021, device=device)
+    win = torch.zeros((sums.numel(), 4), dtype=torch.int64, device=device)
+    rest = sums.clone()
+    for q in range(4):
+        win[:, q] = torch.clamp(rest, max=255)
+        rest -= win[:, q]
+    win = torch.where(win == 0, -5, win)
+    x = win.reshape(-1, 2, 2).permute(1, 0, 2).reshape(2, -1)
+    return x.to(torch.int32).reshape(1, 2, -1, 1).contiguous()
+
+
+def check_act_pool():
+    """The activation + pooling kernel against its plain version, bit for
+    bit.  Its path is its own entry point ``act_pool`` (no model path of the
+    JAX package launches it): every act x pool_kind at p=2 on CNN1's conv
+    map at batch 64, CNN2's and a VGG-scale map, the launch count set to 0
+    just before and read just after.  Then cases that only compare: p=3 and
+    4, C=3 and 10, the whole tanh domain, avg ties, the int32 extremes.
+    Bound: bytes (each int32 input read once, each output written once);
+    the operations (a clamp and a max or add per input for relu, a float
+    division, tanhf, a multiply, a rint and two clamps per input for tanh,
+    counted as 24 float32 operations) take less.  No single PyTorch call
+    computes the function: the pooling operators take floating point only
+    and no 8-bit activation, so there is no library time."""
+    from repro_torch.kernels.act_pool import act_pool, act_pool_cuda, act_pool_ref
+    from repro_torch.kernels.act_pool.act_pool import ACTS, POOL_KINDS
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(shape, lo=-300, hi=600):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+
+    maps = {"cnn1_conv_b64": rand((64, 28, 28, 4)), "cnn2_conv_b64": rand((64, 22, 22, 10)),
+            "vgg_8x224x224x64": rand((8, 224, 224, 64))}
+    variants = [(a, k) for a in ACTS for k in POOL_KINDS]
+    act_pool_cuda.launches = 0
+    outs = {(m, a, k): act_pool(x, pool=2, act=a, pool_kind=k)
+            for m, x in maps.items() for a, k in variants}
+    torch.cuda.synchronize()
+    launches = act_pool_cuda.launches
+    if launches != len(outs):
+        raise AssertionError(f"act_pool launches {launches} != {len(outs)} calls")
+    checked = []
+
+    def hold(name, out, x, pool, act, kind):
+        ref = act_pool_ref(x, pool, act, kind)
+        if out.shape != ref.shape:
+            raise AssertionError(f"act_pool {name}: shape {tuple(out.shape)} != "
+                                 f"{tuple(ref.shape)}")
+        err = (out.long() - ref.long()).abs().max().item()
+        if err:
+            raise AssertionError(f"act_pool {name} {act}/{kind} p={pool}: kernel != plain "
+                                 f"(max abs {err})")
+        checked.append(err)
+
+    for (m, a, k), out in outs.items():
+        hold(m, out, maps[m], 2, a, k)
+    tanh_domain = torch.arange(-1024, 4096, device="cuda", dtype=torch.int32).reshape(1, 80, 64, 1)
+    extremes = rand((2, 6, 6, 8))
+    extremes[0, ::2] = 2 ** 31 - 1
+    extremes[1, :, ::3] = -(2 ** 31 - 1)
+    extremes[0, 1, 1, 1] = -2 ** 31
+    extra = [("p3", rand((2, 12, 12, 16)), 3, variants),
+             ("p4", rand((2, 16, 16, 8)), 4, variants),
+             ("c3", rand((4, 8, 8, 3)), 2, variants),
+             ("c10", rand((2, 6, 6, 10)), 2, variants),
+             ("tanh_domain", tanh_domain, 1, [("tanh", "max")]),
+             ("tanh_domain", tanh_domain, 2, [("tanh", "avg")]),
+             ("avg_ties", _avg_tie_windows("cuda"), 2, [("relu", "avg")]),
+             ("int32_extremes", extremes, 2, variants),
+             ("int32_extremes", extremes, 3, [("relu", "avg"), ("tanh", "avg")])]
+    for name, x, pool, vs in extra:
+        for a, k in vs:
+            hold(name, act_pool(x, pool=pool, act=a, pool_kind=k), x, pool, a, k)
+    ties = act_pool(_avg_tie_windows("cuda"), pool=2, pool_kind="avg")[0, 0, :, 0].cpu()
+    if ties[2].item() != 0 or ties[6].item() != 2:
+        raise AssertionError(f"act_pool avg ties: 0.5 -> {ties[2].item()}, 1.5 -> {ties[6].item()}")
+
+    lines = {}
+    for m, a, k in [(m, "relu", "max") for m in maps] + [("vgg_8x224x224x64", "tanh", "avg")]:
+        x = maps[m]
+        B, H, W, C = x.shape
+        nbytes = 4 * x.numel() + 4 * x.numel() // 4
+        ops = x.numel() * (24 if a == "tanh" else 3)
+        t_ops = ops / (F32_FLOPS if a == "tanh" else INT32_OPS)
+
+        def kernel():
+            return act_pool(x, pool=2, act=a, pool_kind=k)
+
+        def plain():
+            return act_pool_ref(x, 2, a, k)
+
+        p1, k1, k2, p2 = cuda_ms(plain, 10), cuda_ms(kernel, 50), cuda_ms(kernel, 50), cuda_ms(plain, 10)
+        line = {"case": f"{m}_{a}_{k}", "max_abs_err": max(checked), "ms": min(k1, k2),
+                "plain_ms": min(p1, p2), "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3,
+                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops else "operations",
+                "bytes": nbytes, "library_ms": None}
+        log("act_pool timing:", json.dumps(line))
+        lines[line["case"]] = line
+    log(f"act_pool: kernel == plain version bit for bit in {len(checked)} cases; "
+        f"{launches} launches through the entry point")
+    return launches, lines
+
+
+# ---------------------------------------------------------------------------
+# phase 9: odin_linear at the LM's widths, and the LM in the int8/sc modes
+# ---------------------------------------------------------------------------
+
+PHI4_PROJECTIONS = (("q", 3072, 3072), ("k", 3072, 1024), ("v", 3072, 1024),
+                    ("o", 3072, 3072), ("gate", 3072, 8192), ("up", 3072, 8192),
+                    ("down", 8192, 3072))
+
+
+class _PlainScRoute:
+    """Stands in for ``odin_linear``'s ``sc_mac`` entry: the plain version on
+    the card, for the comparison of the two routes."""
+
+    @staticmethod
+    def sc_mac_popcounts(a_q, w_q, lut_a, lut_w, selects, spec, block_k):
+        from repro_torch.kernels.sc_mac import sc_mac_plain
+        return sc_mac_plain(a_q, w_q, lut_a, lut_w, selects, spec, block_k)
+
+
+SC_ROWS = (2, 8, 16, 32)        # rows of the sc serving path: decode, 8 slots, tiles
+
+
+class _RecordingScRoute:
+    """Passes ``odin_linear``'s ``sc_mac`` entry through, recording the rows
+    of every call, so that the serving path's shapes can be held against
+    those that ``check_odin_linear_full_width`` checked."""
+
+    def __init__(self, inner):
+        self.inner, self.rows = inner, set()
+
+    def sc_mac_popcounts(self, a_q, *args):
+        self.rows.add(a_q.shape[0])
+        return self.inner.sc_mac_popcounts(a_q, *args)
+
+
+def check_odin_linear_full_width():
+    """``odin_linear`` at phi4-mini-3.8b's seven projection shapes, bit for
+    bit: sc with the kernel against sc with the plain version on the card (4
+    signed rails, trees of 32) at every row count of ``SC_ROWS`` (2: the sc
+    serving path's decode step; 16 and 32: its prefill tiles; 8: a decode
+    step of 8 slots), int8 on the card (float64 rail dot) against int8 on
+    the CPU (int32) at 8 rows.  Then ``sc_mac`` timed on each projection's
+    a+ . w+ rails at 8 rows against its bound.  Returns the timing lines and
+    the row counts checked."""
+    from repro_torch.core.odin_linear import OdinConfig, odin_linear
+    from repro_torch.core.quant import quantize_signed_tworail
+    from repro_torch.kernels.sc_mac import sc_mac_cuda
+
+    odin_module = sys.modules["repro_torch.core.odin_linear"]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cfg = OdinConfig(mode="sc")
+    lines = {}
+    for name, K, N in PHI4_PROJECTIONS:
+        w = torch.randn((K, N), generator=g, device="cuda") * K ** -0.5
+        for M in SC_ROWS:
+            x = torch.randn((M, K), generator=g, device="cuda")
+            if M == 8:
+                y8 = odin_linear(x, w, OdinConfig(mode="int8"))
+                y8_cpu = odin_linear(x.cpu(), w.cpu(), OdinConfig(mode="int8"))
+                if not torch.equal(y8.cpu(), y8_cpu):
+                    raise AssertionError(
+                        f"odin_linear int8 {name}: card != CPU "
+                        f"(max abs {(y8.cpu() - y8_cpu).abs().max().item():.3e})")
+            sc_mac_cuda.launches = 0
+            ys = odin_linear(x, w, cfg)
+            torch.cuda.synchronize()
+            if sc_mac_cuda.launches != 4:
+                raise AssertionError(f"odin_linear sc {name} M={M}: {sc_mac_cuda.launches} "
+                                     "sc_mac launches, not one per rail pair (4)")
+            kernel_route = odin_module.sc_mac_ops
+            odin_module.sc_mac_ops = _PlainScRoute
+            try:
+                yp = odin_linear(x, w, cfg)
+            finally:
+                odin_module.sc_mac_ops = kernel_route
+            if not torch.equal(ys, yp) or not torch.isfinite(ys).all():
+                raise AssertionError(f"odin_linear sc {name} M={M}: kernel route != plain "
+                                     f"route (max abs {(ys - yp).abs().max().item():.3e})")
+            if M == 8:
+                a_pos = quantize_signed_tworail(x)[0]
+                w_pos = quantize_signed_tworail(w)[0]
+                lines[name] = time_sc_mac(f"phi4_{name}_8x{K}x{N}_hybrid32", a_pos, w_pos, 32)
+    log(f"odin_linear at phi4-mini's projections: sc kernel route == plain route at "
+        f"{list(SC_ROWS)} rows, int8 card == CPU at 8 rows, bit for bit")
+    return lines, set(SC_ROWS)
+
+
+def serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked):
+    """The LM in ODIN's int8 and sc modes through ``ServingEngine(odin_mode=)``
+    at full width.  int8: the smoke traffic's 8 prompts of 512 tokens, 32
+    greedy tokens each, and a decode profile; tokens that agree with the
+    exact-mode run are counted (informative: an 8-bit model is another
+    model).  sc (stream 256, trees of 32, signed rails): 2 slots, 2 prompts
+    of 16 tokens, 4 greedy tokens each, every dispatch timed; every forward
+    launches ``sc_mac`` once per rail pair and projection (4 x 7 x layers),
+    and a decode profile gives sc_mac's share of the device time.  Every row
+    count that the sc run gives ``sc_mac`` must be among
+    ``sc_rows_checked``, those at which ``check_odin_linear_full_width``
+    held the kernel route against the plain route."""
+    out = {}
+    r = serve(cfg, params, prompts, 32, odin_mode="int8")
+    s = r["summary"]
+    agree = sum(a == b for rid, st in r["streams"].items()
+                for a, b in zip(st, exact_streams[rid]))
+    first = [next((t for t, (a, b) in enumerate(zip(st, exact_streams[rid])) if a != b),
+                  len(st)) for rid, st in r["streams"].items()]
+    line = {"mode": "int8", "requests": 8, "prompt": 512, "generated": 32,
+            "wall_s": r["wall"], "decode_tokens_per_s": s["decode_tokens_per_s"],
+            "ttft_s": s["ttft_s"], "tpot_s": s["tpot_s"], "peak_memory_gb": r["peak"] / 1e9,
+            "forwards": r["forwards"], "paged_attn_launches": r["launches"],
+            "sc_mac_launches": r["sc_launches"],
+            "tokens_equal_to_exact": agree, "tokens": 8 * 32,
+            "steps_before_first_difference_from_exact": first}
+    if r["sc_launches"]:
+        raise AssertionError("int8 mode launched sc_mac")
+    log("int8 serving:", json.dumps(line))
+    line["decode_profile"] = profile_decode(
+        params, cfg.with_overrides(odin_mode="int8"), prompts, block=2, max_new=12,
+        label="int8 decode profile (8 slots, 2 steps each block)")
+    out["int8"] = dict(line, launches=r["launches"])
+
+    sc_prompts = [p[:16] for p in prompts[:2]]
+    odin_module = sys.modules["repro_torch.core.odin_linear"]
+    kernel_route = odin_module.sc_mac_ops
+    odin_module.sc_mac_ops = route = _RecordingScRoute(kernel_route)
+    try:
+        r = serve(cfg, params, sc_prompts, 4, slots=2, odin_mode="sc", timed=True)
+    finally:
+        odin_module.sc_mac_ops = kernel_route
+    if not route.rows <= sc_rows_checked:
+        raise AssertionError(f"sc serving gave sc_mac {sorted(route.rows)} rows; only "
+                             f"{sorted(sc_rows_checked)} were held against the plain route")
+    s = r["summary"]
+    per_forward = 4 * len(PHI4_PROJECTIONS) * cfg.n_layers
+    n_fwd = r["forwards"] + r["prefill_forwards"]
+    if r["sc_launches"] != per_forward * n_fwd:
+        raise AssertionError(f"sc_mac launches {r['sc_launches']} != {per_forward} x "
+                             f"{n_fwd} forwards")
+    t = r["times"]
+    line = {"mode": "sc", "requests": 2, "prompt": 16, "generated": 4, "wall_s": r["wall"],
+            "prefill_dispatch_s": t["_mixed"] + t["_prefill"], "decode_step_s": t["_decode"],
+            "decode_tokens_per_s": s["decode_tokens_per_s"], "ttft_s": s["ttft_s"],
+            "peak_memory_gb": r["peak"] / 1e9, "forwards": n_fwd,
+            "sc_mac_launches": r["sc_launches"], "sc_mac_launches_per_forward":
+            r["sc_launches"] / n_fwd, "sc_mac_rows": sorted(route.rows),
+            "paged_attn_launches": r["launches"],
+            "streams": r["streams"]}
+    log("sc serving:", json.dumps(line))
+    line["decode_profile"] = profile_decode(
+        params, cfg.with_overrides(odin_mode="sc"), sc_prompts, block=1, max_new=8,
+        label="sc decode profile (2 slots, 1 step each block)")
+    out["sc"] = dict(line, launches=r["launches"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the guarded decode step and fault-plan replay
+# ---------------------------------------------------------------------------
+
+def guarded_faults(cfg, params, rng):
+    """Full-width exact mode under fault plans.  A nan_logits event poisons
+    one slot's logits in a decode step: that request alone fails
+    (``nan_quarantined == 1``, a clean prefix of its fault-free stream) and
+    the co-batched streams equal the fault-free run's, a parting accepted
+    only at a reported near tie (``check_divergence``).  Then a generated
+    chaos plan (seed 0: alloc, swap, clock skew, stuck-at, wear exhaustion
+    and nan_logits events) with the degradation ladder on, against a tight
+    pool with a swap tier, runs to completion with every request terminal."""
+    from repro_torch.serving import FaultEvent, FaultPlan, RequestState
+
+    prompts = list(rng.integers(0, cfg.vocab, size=(4, 128), dtype=np.int32))
+    base = serve(cfg, params, prompts, 16, slots=4)
+    plan = FaultPlan(events=(FaultEvent(site="nan_logits", step=6, slot=1),))
+    hit = serve(cfg, params, prompts, 16, slots=4, all_done=False, fault_plan=plan)
+    s = hit["summary"]
+    failed = [r for r in hit["requests"] if r.state is RequestState.FAILED]
+    if s["faults"]["nan_quarantined"] != 1 or len(failed) != 1 \
+            or failed[0].finish_reason != "nan_logits":
+        raise AssertionError(f"nan_logits plan: {s['faults']}, failed "
+                             f"{[(r.rid, r.finish_reason) for r in failed]}")
+    if [f["outcome"] for f in s["fault_plan"]["fired"]] != ["poisoned"]:
+        raise AssertionError(f"nan_logits plan fired {s['fault_plan']['fired']}")
+    bad = failed[0].rid
+    for rid, stream in hit["streams"].items():
+        ref = base["streams"][rid]
+        if rid == bad:
+            if len(stream) >= len(ref):
+                raise AssertionError(f"quarantined rid {rid} kept all {len(stream)} tokens")
+            ref = ref[:len(stream)]
+        check_divergence(params, cfg, prompts[rid], ref, stream, rid)
+    n_equal = sum(hit["streams"][rid] == base["streams"][rid]
+                  for rid in base["streams"] if rid != bad)
+    line = {"plan": "nan_logits", "quarantined_rid": bad,
+            "quarantined_tokens": len(hit["streams"][bad]),
+            "cobatched_streams_equal": n_equal, "cobatched": len(prompts) - 1,
+            "faults": s["faults"], "fired": s["fault_plan"]["fired"],
+            "forwards": hit["forwards"], "paged_attn_launches": hit["launches"]}
+    log("guarded decode:", json.dumps(line))
+
+    chaos = FaultPlan.generate(0, n_steps=64, rate=0.3)
+    prompts6 = list(rng.integers(0, cfg.vocab, size=(6, 128), dtype=np.int32))
+    c = serve(cfg, params, prompts6, 32, slots=4, max_len=256, all_done=False,
+              n_blocks=30, swap_blocks=32, fault_plan=chaos, degrade=True)
+    s = c["summary"]
+    json.dumps(s, allow_nan=False)
+    if sum(s["terminal"].values()) != len(prompts6) \
+            or len(s["fault_plan"]["fired"]) != s["faults"]["injected"]:
+        raise AssertionError(f"chaos plan: terminal {s['terminal']}, faults {s['faults']}")
+    line2 = {"plan": "generated seed 0, degrade on", "terminal": s["terminal"],
+             "faults": s["faults"], "sites_fired": sorted({f["site"] for f in
+                                                           s["fault_plan"]["fired"]}),
+             "outcomes": sorted({f["outcome"] for f in s["fault_plan"]["fired"]}),
+             "preemptions": s["preemptions"], "reliability": s["reliability"],
+             "degradation": {k: v for k, v in s["degradation"].items() if k != "history"},
+             "forwards": c["forwards"], "paged_attn_launches": c["launches"],
+             "wall_s": c["wall"]}
+    log("chaos plan:", json.dumps(line2))
+    return {"guarded_nan": hit["launches"], "chaos": c["launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels.act_pool.act_pool import SOURCE as ACT_POOL_SOURCE
     from repro_torch.kernels.int8_mm import int8_mm as int8_mod
     from repro_torch.kernels.paged_attn import ops as paged_ops
     from repro_torch.kernels.sc_mac import sc_mac as sc_mod
@@ -779,26 +1183,38 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
     log(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    texts = build.build_all([paged_ops.SOURCE, sc_mod.SOURCE, int8_mod.SOURCE])
+    texts = build.build_all([paged_ops.SOURCE, sc_mod.SOURCE, int8_mod.SOURCE,
+                             ACT_POOL_SOURCE])
     log(f"kernel build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s")
     for source, text in texts.items():
         log(f"--- nvcc {source.name} ---\n{text.strip()}")
 
     report = check_paged_attn()
+    act_launches, act_lines = check_act_pool()
     sc_lines = check_sc_mac()
+    _, sc_rows_checked = check_odin_linear_full_width()
     int8_lines = check_int8_mm()
     check_rail_dot()
     small_model_card_vs_cpu()
-    launches, _ = serve_full_width()
-    sc_launches, _ = cnn_experiment()
+    cfg, params, prompts, rng = load_phi4()
+    paged_launches, exact_streams = serve_full_width(cfg, params, prompts, rng)
+    odin = serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked)
+    paged_launches.update(serve_int8=odin["int8"]["launches"], serve_sc=odin["sc"]["launches"])
+    paged_launches.update(guarded_faults(cfg, params, rng))
+    del params
+    torch.cuda.empty_cache()
+    sc_launches = {"cnn_experiment": cnn_experiment()[0],
+                   "serve_sc": odin["sc"]["sc_mac_launches"]}
     int8_launches = kernel_bench()
     sc_rep = sc_lines["cnn1_conv0_b64_tree"]
     int8_rep = int8_lines["4096x4096x4096"]
+    act_rep = act_lines["vgg_8x224x224x64_relu_max"]
     kernels = [{
         "name": "paged_attn", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
         "replaces": "src/repro/kernels/paged_attn/paged_attn.py:53",
-        "launches": launches, "max_abs_err": report["max_abs_err"],
+        "launches": sum(paged_launches.values()), "launches_by_path": paged_launches,
+        "max_abs_err": report["max_abs_err"],
         "ms": report["ms"], "plain_ms": report["plain_ms"],
         "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
         "library_ms": report["library_ms"],
@@ -806,7 +1222,8 @@ def main():
         "name": "sc_mac", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",
         "replaces": "src/repro/kernels/sc_mac/sc_mac.py:60",
-        "launches": sc_launches, "shape": sc_rep["case"],
+        "launches": sum(sc_launches.values()), "launches_by_path": sc_launches,
+        "shape": sc_rep["case"],
         "max_abs_err": max(x["max_abs_err"] for x in sc_lines.values()),
         "ms": sc_rep["ms"], "plain_ms": sc_rep["plain_ms"],
         "bound_ms": sc_rep["bound_ms"], "bound_by": sc_rep["bound_by"],
@@ -820,6 +1237,15 @@ def main():
         "ms": int8_rep["ms"], "plain_ms": int8_rep["plain_ms"],
         "bound_ms": int8_rep["bound_ms"], "bound_by": int8_rep["bound_by"],
         "library_ms": int8_rep["library_ms"],
+    }, {
+        "name": "act_pool", "route": "cuda", "status": "ok",
+        "source": "src/repro_torch/kernels/act_pool/csrc/act_pool.cu",
+        "replaces": "src/repro/kernels/act_pool/act_pool.py:36",
+        "launches": act_launches, "shape": act_rep["case"],
+        "max_abs_err": act_rep["max_abs_err"],
+        "ms": act_rep["ms"], "plain_ms": act_rep["plain_ms"],
+        "bound_ms": act_rep["bound_ms"], "bound_by": act_rep["bound_by"],
+        "library_ms": None,
     }]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -26,7 +26,9 @@ import torch
 
 from repro_torch.core import stochastic as sc
 from repro_torch.core.quant import quantize_signed_tworail, quantize_unipolar
-from repro_torch.kernels.sc_mac.ops import sc_mac_popcounts
+# the module, not its function: sc_mac's ops import this package's
+# stochastic core, so either side may be imported first
+from repro_torch.kernels.sc_mac import ops as sc_mac_ops
 from repro_torch.kernels.sc_mac.ref import tile_k
 
 __all__ = ["OdinConfig", "odin_linear", "get_luts"]
@@ -78,7 +80,7 @@ def _rail_matmul(a_q, w_q, cfg: OdinConfig, luts=None) -> torch.Tensor:
         # trees of bk leaves: one full tree over K̂, or the hybrid regime's
         # per-block subtrees whose popcounts accumulate in binary
         bk = tile_k(a_q.shape[-1], cfg.sc_block_k)
-        pop = sc_mac_popcounts(a_q, w_q, lut_a, lut_w, selects, spec, bk)
+        pop = sc_mac_ops.sc_mac_popcounts(a_q, w_q, lut_a, lut_w, selects, spec, bk)
         # popcount → integer-dot units: Σ a·w ≈ pop · bk L² / stream_len
         return pop.to(torch.float32) * (bk * spec.n_levels**2 / spec.stream_len)
     # int8 expected surrogate — identical scaling; optionally round to the

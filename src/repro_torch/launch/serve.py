@@ -6,10 +6,12 @@ Usage:
   # open-loop scenario with a constrained KV pool (JSON metrics on stdout):
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke \\
       --scenario mixed --requests 16 --slots 4 --kv-blocks 20
+  # ODIN's stochastic-computing mode on every projection of the LM:
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \\
+      --odin-mode sc
 
-The static loop (``--static``), the HTTP front door (``--listen``),
-speculation (``--spec-ngram``) and fault plans (``--fault-plan``) are not
-ported yet and exit with an error.
+The static loop (``--static``), the HTTP front door (``--listen``) and
+speculation (``--spec-ngram``) are not ported yet and exit with an error.
 """
 from __future__ import annotations
 
@@ -20,12 +22,12 @@ import json
 import numpy as np
 
 from repro_torch.models import registry
-from repro_torch.serving import (SCENARIOS, ReliabilityConfig, Request,
-                                 ServingEngine, Tracer, make_requests)
+from repro_torch.serving import (SCENARIOS, FaultPlan, ReliabilityConfig,
+                                 Request, ServingEngine, Tracer, make_requests)
 
 __all__ = ["serve", "main"]
 
-_NOT_PORTED = ("static", "listen", "spec_ngram", "fault_plan")
+_NOT_PORTED = ("static", "listen", "spec_ngram")
 
 
 def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
@@ -72,6 +74,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--odin-mode", choices=["exact", "int8", "sc"], default=None,
+                    help="execution mode for Linear layers (default: config's)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable shared-prompt block dedup")
     ap.add_argument("--no-mixed", action="store_true",
@@ -110,15 +114,20 @@ def main(argv=None):
     ap.add_argument("--no-wear-leveling", action="store_true")
     ap.add_argument("--scrub-rate", type=int, default=0, metavar="N")
     ap.add_argument("--drift-deadline-ms", type=float, default=None)
+    ap.add_argument("--fault-plan", default=None, metavar="PATH",
+                    help="seeded fault-injection plan (JSON, see repro_torch."
+                         "serving.faults.FaultPlan); scenario mode only")
     # options of the JAX package's serve CLI whose paths are not ported yet
     ap.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--listen", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--spec-ngram", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--fault-plan", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for name in _NOT_PORTED:
         if getattr(args, name):
             ap.error(f"--{name.replace('_', '-')} is not yet ported (see ROADMAP.md)")
+    if args.fault_plan and not args.scenario:
+        ap.error("--fault-plan requires --scenario (fault injection is bench/"
+                 "test-mode only)")
     cfg = registry.get_smoke(args.arch) if args.smoke else registry.get_config(args.arch)
 
     reliability = None
@@ -132,7 +141,8 @@ def main(argv=None):
                               if args.drift_deadline_ms is not None else None))
     tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
     engine_kw = dict(
-        device=args.device, n_blocks=args.kv_blocks, swap_blocks=args.swap_blocks,
+        device=args.device, odin_mode=args.odin_mode, n_blocks=args.kv_blocks,
+        swap_blocks=args.swap_blocks,
         prefill_chunk=args.chunk,
         prefix_sharing=False if args.no_prefix_sharing else None,
         mixed=False if args.no_mixed else None, mixed_budget=args.mixed_budget,
@@ -145,6 +155,9 @@ def main(argv=None):
         degrade=args.degrade)
 
     if args.scenario:
+        if args.fault_plan:
+            with open(args.fault_plan) as fh:
+                engine_kw["fault_plan"] = FaultPlan.from_json(fh.read())
         spec = dataclasses.replace(SCENARIOS[args.scenario], n_requests=args.requests)
         block_size = args.block_size or 16
         max_len = max(spec.prompt_buckets) + spec.shared_prefix + max(spec.gen_buckets)

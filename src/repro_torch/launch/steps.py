@@ -1,10 +1,11 @@
 """Continuous-batching serving steps over the paged KV pool.
 
 The serving subset of the JAX package's ``launch/steps.py``: slot prefill,
-activity-masked decode, the fused mixed prefill+decode tile and the decode
-horizon.  Each ``make_*`` returns a plain function that runs eagerly on the
-caches' device; the horizon's ``lax.scan`` is a Python loop whose carry
-stays on the device (one host sync per horizon, taken by the engine).
+activity-masked decode, the guarded decode with its NaN verdict, the fused
+mixed prefill+decode tile and the decode horizon.  Each ``make_*`` returns
+a plain function that runs eagerly on the caches' device; the horizon's
+``lax.scan`` is a Python loop whose carry stays on the device (one host
+sync per horizon, taken by the engine).
 
 Pool leaves are updated in place; ``pos`` leaves are recomputed and merged
 with the activity mask, as the JAX steps merge their functional caches.
@@ -27,6 +28,7 @@ __all__ = [
     "init_serving_caches",
     "make_slot_prefill_step",
     "make_serving_decode_step",
+    "make_serving_decode_guarded",
     "make_serving_mixed_step",
     "make_serving_decode_horizon",
 ]
@@ -137,15 +139,22 @@ def _sample_tokens(logits, temperature: float, top_k: int,
     return torch.argmax(scaled, dim=-1).to(torch.int32)[:, None]
 
 
-def _masked_decode(params, caches, tokens, lengths, active, tables, generator,
-                   temperature: float, cfg: ModelConfig, top_k: int):
-    """One activity-masked decode over all slots (the shared body of the
-    single-step and horizon serving decode).  Returns (next_tokens, caches)."""
+def _decode_forward(params, caches, tokens, lengths, active, tables, cfg: ModelConfig):
+    """The activity-masked decode forward over all slots: inactive slots'
+    tables point at the write-off block and their per-slot leaves keep their
+    values.  Returns (logits, caches)."""
     trash = _pool_trash_block(caches)
     tables = torch.where(active[:, None], tables, trash)
     logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
                                        start_pos=lengths[:, None], tables=tables)
-    caches = _merge(active, caches, new_caches)
+    return logits, _merge(active, caches, new_caches)
+
+
+def _masked_decode(params, caches, tokens, lengths, active, tables, generator,
+                   temperature: float, cfg: ModelConfig, top_k: int):
+    """One activity-masked decode over all slots (the shared body of the
+    single-step and horizon serving decode).  Returns (next_tokens, caches)."""
+    logits, caches = _decode_forward(params, caches, tokens, lengths, active, tables, cfg)
     return _sample_tokens(logits, temperature, top_k, generator), caches
 
 
@@ -163,6 +172,35 @@ def make_serving_decode_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
                     generator=None, temperature: float = 0.0):
         return _masked_decode(params, caches, tokens, lengths, active, tables,
                               generator, temperature, cfg, top_k)
+
+    return decode_step
+
+
+def make_serving_decode_guarded(cfg: ModelConfig, top_k: int = 0) -> Callable:
+    """One decode step with a per-slot NaN/Inf logit guard and optional
+    fault injection.
+
+    (params, caches, tokens [B,1], lengths [B], active [B], tables [B,P],
+     generator, temperature, poison [B]) → (next [B,1], bad [B], caches)
+
+    The forward is the plain decode step's.  ``poison`` sets the marked
+    slots' logits to NaN after it (the PCRAM-drift analog at the logit
+    seam), so co-batched slots sample from the same logits as an unguarded
+    step.  ``bad[s]`` is True when slot ``s``'s last-row logits hold a
+    non-finite value; the engine fails that request and drops its token.
+    Finite rows take the plain step's sampling, so they emit the same tokens.
+    """
+
+    def decode_step(params, caches, tokens, lengths, active, tables,
+                    generator=None, temperature: float = 0.0, poison=None):
+        logits, caches = _decode_forward(params, caches, tokens, lengths, active,
+                                         tables, cfg)
+        if poison is not None:
+            m = poison.reshape((-1,) + (1,) * (logits.ndim - 1))
+            logits = torch.where(m, torch.nan, logits)
+        last = logits[:, -1]
+        bad = ~torch.isfinite(last.reshape(last.shape[0], -1)).all(dim=-1)
+        return _sample_tokens(logits, temperature, top_k, generator), bad, caches
 
     return decode_step
 

@@ -6,11 +6,12 @@ package; a Python loop over the layers takes the place of its ``lax.scan``
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.attention import POOL_LEAVES
 from repro_torch.nn.blocks import block_apply, block_spec
 from repro_torch.nn.layers import embed, embed_spec, norm_spec, rmsnorm
@@ -26,11 +27,8 @@ def _stack(tree, n: int):
                             s.init, s.scale), tree)
 
 
-def _odin(cfg: ModelConfig):
-    if cfg.odin_mode != "exact":
-        raise NotImplementedError(
-            f"ODIN mode {cfg.odin_mode!r} is not ported yet (see ROADMAP.md)")
-    return None
+def _odin(cfg: ModelConfig) -> Optional[OdinConfig]:
+    return None if cfg.odin_mode == "exact" else OdinConfig(mode=cfg.odin_mode)
 
 
 def _check_supported(cfg: ModelConfig) -> None:

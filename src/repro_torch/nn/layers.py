@@ -1,4 +1,4 @@
-"""Core layers in exact mode: Linear, norms, embeddings, activations, RoPE.
+"""Core layers: ODIN-aware Linear, norms, embeddings, activations, RoPE.
 
 Numerics follow the JAX package's ``nn/layers.py``: norms and RoPE upcast
 to float32 and cast back to the input dtype at the same points.
@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.odin_linear import OdinConfig, odin_linear
 from repro_torch.nn.module import ParamSpec
 
 __all__ = [
@@ -23,13 +24,19 @@ def linear_spec(d_in: int, d_out: int, axes: Tuple[Optional[str], Optional[str]]
     return ParamSpec((d_in, d_out), axes, dtype, init="fan_in", scale=scale)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, odin=None) -> torch.Tensor:
-    """``x @ w`` in the compute dtype (ODIN ``exact`` mode).  The ``int8`` and
-    ``sc`` modes are not ported yet."""
-    if odin is not None and odin.mode != "exact":
-        raise NotImplementedError(
-            f"ODIN mode {odin.mode!r} is not ported yet (see ROADMAP.md)")
-    return torch.matmul(x, w.to(x.dtype))
+def linear(x: torch.Tensor, w: torch.Tensor, odin: Optional[OdinConfig] = None,
+           drift_step: int = 0) -> torch.Tensor:
+    """``x @ w`` routed through the configured ODIN execution mode.
+
+    ``exact`` stays in the compute dtype; ``int8``/``sc`` run the paper's
+    quantized pipeline in float32 (``core/odin_linear.py``) and cast back.
+    ``drift_step`` keys the PCRAM drift-noise pattern in time; 0 keeps the
+    excursion fixed per seed.
+    """
+    if odin is None or odin.mode == "exact":
+        return torch.matmul(x, w.to(x.dtype))
+    y = odin_linear(x.float(), w.float(), odin, drift_step=drift_step)
+    return y.to(x.dtype)
 
 
 def norm_spec(d: int) -> ParamSpec:

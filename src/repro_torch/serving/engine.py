@@ -11,14 +11,16 @@ serving steps (``launch/steps.py``) on the engine's ``device``:
 * mixed dispatch fuses prefill-chunk rows and decode rows into one tile;
 * ``horizon > 1`` runs up to ``h`` decode steps per dispatch with the
   token carry kept on the device and one host sync at the end;
-* swap preemption is a block-to-block index copy on the device.
+* swap preemption is a block-to-block index copy on the device;
+* a step that a fault plan poisons runs the guarded decode step, whose
+  per-slot finiteness verdict quarantines the poisoned request alone.
 
 Host syncs happen where the JAX engine syncs (end of a prefill, the token
 readback of each dispatch) and nowhere else.
 
 Not ported yet (see ROADMAP.md): n-gram speculation (``spec_ngram > 0``),
-the guarded NaN decode (``fault_plan``/``nan_guard``), dense caches
-(``paged=False`` or non-paged archs), and requests carrying ``extras``.
+dense caches (``paged=False`` or non-paged archs), and requests carrying
+``extras``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (init_serving_caches,
+                                      make_serving_decode_guarded,
                                       make_serving_decode_horizon,
                                       make_serving_decode_step,
                                       make_serving_mixed_step,
@@ -41,7 +44,8 @@ from repro_torch.nn import module as nnmod
 from repro_torch.nn.attention import POOL_LEAVES
 from repro_torch.serving.blocks import BlockPool, PagedKVStore
 from repro_torch.serving.degrade import DegradationController, DegradeConfig
-from repro_torch.serving.faults import EngineStallError, ShuttingDown, SwapCopyError
+from repro_torch.serving.faults import (EngineStallError, FaultPlan, ShuttingDown,
+                                       SwapCopyError)
 from repro_torch.serving.metrics import EngineStats, OdinCostModel, summarize
 from repro_torch.serving.reliability import ReliabilityConfig
 from repro_torch.serving.scheduler import (PrefixCache, PrefixGrant, Request,
@@ -74,9 +78,10 @@ class ServingEngine:
     * ``jit_cache`` is accepted and unused (eager execution compiles no
       executables); ``xla_annotations`` wraps each dispatch in a
       ``torch.profiler.record_function`` range instead;
-    * ``spec_ngram > 0``, ``fault_plan``, ``nan_guard=True``, ``paged=False``,
-      models with non-paged segments and requests with ``extras`` raise
-      ``NotImplementedError``.
+    * the guarded decode step is an eager function built with the others,
+      not an executable compiled on first use;
+    * ``spec_ngram > 0``, ``paged=False``, models with non-paged segments
+      and requests with ``extras`` raise ``NotImplementedError``.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
@@ -98,7 +103,7 @@ class ServingEngine:
                  xla_annotations: bool = False,
                  deadline_s: Optional[float] = None,
                  queue_timeout_s: Optional[float] = None,
-                 fault_plan=None,
+                 fault_plan: Optional[FaultPlan] = None,
                  nan_guard: Optional[bool] = None,
                  degrade=None,
                  reliability=None,
@@ -112,8 +117,6 @@ class ServingEngine:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         if spec_ngram:
             raise _not_ported("n-gram speculative decode (spec_ngram > 0)")
-        if fault_plan is not None or nan_guard:
-            raise _not_ported("the guarded decode step (fault_plan / nan_guard)")
         if not paged:
             raise _not_ported("the dense serving cache (paged=False)")
         if not all(pageable_block(b) for b in cfg.blocks):
@@ -154,6 +157,7 @@ class ServingEngine:
         self._prefill = make_slot_prefill_step(cfg)
         self._decode = make_serving_decode_step(cfg, top_k=self.top_k)
         self._mixed = make_serving_mixed_step(cfg, top_k=self.top_k)
+        self._guarded = make_serving_decode_guarded(cfg, top_k=self.top_k)
 
         # ---- PCRAM reliability layer --------------------------------------
         # True → defaults (wear-leveled allocation, no budget, no scrub);
@@ -221,6 +225,9 @@ class ServingEngine:
         # ---- robustness substrate ----------------------------------------
         self.deadline_s = deadline_s
         self.queue_timeout_s = queue_timeout_s
+        self.fault_plan = fault_plan
+        self._nan_guard = (bool(nan_guard) if nan_guard is not None
+                           else fault_plan is not None)
         if degrade is None or degrade is False:
             self.degrade = None
         elif degrade is True:
@@ -449,6 +456,60 @@ class ServingEngine:
             else:
                 alive.append(req)
         self._watched = alive
+
+    def _apply_faults(self, now: float):
+        """Consume this step's fault events from the plan.  Arming faults
+        (alloc/swap/clock) mutate the seams directly; stuck-at and wear
+        exhaustion flag blocks for the reliability sweep; a ``nan_logits``
+        event is returned for the decode phase to inject through the guarded
+        step."""
+        nan_ev = None
+        for ev in self.fault_plan.events_at(self.stats.steps):
+            self.stats.faults_injected += 1
+            if ev.site == "alloc":
+                self.pool.arm_alloc_failures(ev.count)
+                self.stats.alloc_faults += ev.count
+                self.fault_plan.record(ev, "armed", count=ev.count)
+            elif ev.site in ("swap_out", "swap_in"):
+                if self.store is None:
+                    self.fault_plan.record(ev, "skipped-no-swap-tier")
+                else:
+                    self.store.arm_swap_failures(ev.site[5:], ev.count)
+                    self.fault_plan.record(ev, "armed", count=ev.count)
+            elif ev.site == "clock_skew":
+                self._skew += ev.skew_s
+                self.fault_plan.record(ev, "applied", skew_s=ev.skew_s)
+            elif ev.site == "stuck_at":
+                # one PCRAM block develops a stuck-at cell: the sweep drains
+                # and retires it before the next dispatch
+                if self.pool.n_blocks == 0:
+                    self.fault_plan.record(ev, "skipped-empty-pool")
+                else:
+                    bid = ev.slot % self.pool.n_blocks
+                    if bid in self.pool.retired:
+                        self.fault_plan.record(ev, "already-retired", block=bid)
+                    else:
+                        self._pending_bad.append(bid)
+                        self.fault_plan.record(ev, "flagged", block=bid)
+            elif ev.site == "wear_exhaustion":
+                # the count most-worn live blocks burn through their
+                # remaining endurance at once: a retirement storm
+                order = np.argsort(self.pool.wear, kind="stable")[::-1]
+                picked = [int(b) for b in order
+                          if int(b) not in self.pool.retired][:ev.count]
+                self._pending_bad.extend(picked)
+                self.fault_plan.record(ev, "flagged", blocks=picked)
+            elif ev.site == "nan_logits":
+                if self._nan_guard:
+                    nan_ev = ev
+                else:
+                    self.fault_plan.record(ev, "skipped-guard-off")
+            if self.tracer.enabled:
+                self.tracer.instant("fault-inject", "faults", "scheduler",
+                                    ts=now, args={"site": ev.site,
+                                                  "step": ev.step,
+                                                  "count": ev.count})
+        return nan_ev
 
     def _observe_degrade(self, now: float) -> None:
         """Feed the controller this step's observables and push its knobs
@@ -817,6 +878,12 @@ class ServingEngine:
         now = self._now()
         if self._watched:
             self._expire(now)
+        nan_ev = None
+        if self.fault_plan is not None:
+            nan_ev = self._apply_faults(now)
+            now = self._now()              # clock skew may have moved it
+        # pending stuck-at blocks are swept even with reliability off:
+        # fault containment is not optional
         if self._pending_bad or self.reliability is not None:
             self._reliability_sweep(now)
         plan = self.sched.plan(now)
@@ -920,7 +987,15 @@ class ServingEngine:
         max_h = self.horizon
         if self.degrade is not None:
             max_h = self.degrade.horizon_cap(max_h)
-        if mixed_pending:
+        if nan_ev is not None and not active_slots:
+            self.fault_plan.record(nan_ev, "skipped-idle")
+        if active_slots and nan_ev is not None:
+            # a poisoned step runs the guarded single step so the NaN is
+            # quarantined per slot; greedy streams are horizon-invariant, so
+            # unfaulted co-batched slots keep their streams.  Mid-prefill
+            # slots sit this step out (the guard has no mixed tile).
+            self._decode_guarded_step(active_slots, nan_ev)
+        elif mixed_pending:
             self._dispatch_mixed()
         elif active_slots:
             h = 1
@@ -971,6 +1046,68 @@ class ServingEngine:
         for s in active_slots:
             req = self.sched.running[s]
             self._record_writes(req, int(self._slot_len[s]), 1, now)
+            self._slot_len[s] += 1
+            self.stats.decode_tokens += 1
+            self._emit(req, host[s, 0], now)
+            if req.done:
+                self._complete(req, now)
+
+    def _decode_guarded_step(self, active_slots: List[int], ev) -> None:
+        """One guarded ``[slots, 1]`` dispatch with an injected NaN poison.
+
+        The poison corrupts exactly one slot's logits after the forward (a
+        resistance excursion flips the readout, not the programmed weights).
+        The guard fails that request; every other slot samples from untouched
+        logits with the plain step's noise schedule, so unfaulted co-batched
+        greedy streams equal a fault-free run's."""
+        trace = self.tracer.enabled
+        t0 = self._now()
+        active = np.zeros(self.slots, bool)
+        active[active_slots] = True
+        poison = np.zeros(self.slots, bool)
+        target = active_slots[ev.slot % len(active_slots)]
+        poison[target] = True
+        self.fault_plan.record(ev, "poisoned", slot=target,
+                               rid=self.sched.running[target].rid)
+        tables = self._refresh_tables()
+        with self._annotate("decode"):
+            nxt, bad, self.caches = self._guarded(
+                self.params, self.caches, self._last_tok,
+                self._dev(self._slot_len), self._dev(active), tables,
+                self._generator(self.stats.decode_steps), self.temperature,
+                self._dev(poison))
+            host = nxt.cpu().numpy()                 # syncs the step
+            badh = bad.cpu().numpy()
+        wall = self._now() - t0
+        self.stats.decode_time += wall
+        self.metrics.observe("dispatch_decode_s", wall)
+        if trace:
+            rows = len(active_slots)
+            self.tracer.span(
+                "decode", "dispatch", "dispatch", t0, wall,
+                args={"kind": "decode", "h": 1, "spec_k": 0, "guarded": True,
+                      "slots_active": rows, "tokens": rows, "rows": rows,
+                      "host_syncs": 1,
+                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+        self.stats.decode_steps += 1
+        self.stats.dispatches += 1
+        self.stats.decode_dispatches += 1
+        self.stats.host_syncs += 1
+        self.stats.active_slot_steps += len(active_slots)
+        self.stats.slot_steps += self.slots
+        self._last_tok = nxt
+        now = self._now()
+        for s in active_slots:
+            req = self.sched.running[s]
+            # the forward wrote this slot's KV row whether or not its readout
+            # was poisoned: wear is physical, bill it either way
+            self._record_writes(req, int(self._slot_len[s]), 1, now)
+            if badh[s]:
+                # quarantine: only the poisoned request fails; its token
+                # never enters a stream and the slot is re-admittable
+                self.stats.nan_quarantined += 1
+                self._finalize(req, RequestState.FAILED, "nan_logits", now)
+                continue
             self._slot_len[s] += 1
             self.stats.decode_tokens += 1
             self._emit(req, host[s, 0], now)
@@ -1080,6 +1217,8 @@ class ServingEngine:
                         registry=self.metrics)
         if self.degrade is not None:
             out["degradation"].update(self.degrade.snapshot(self._now()))
+        if self.fault_plan is not None:
+            out["fault_plan"] = self.fault_plan.snapshot()
         return out
 
     def _all_requests(self) -> List[Request]:

@@ -122,8 +122,7 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32)
 
 
-@pytest.mark.parametrize("kw", [{"spec_ngram": 2}, {"paged": False},
-                                {"nan_guard": True}])
+@pytest.mark.parametrize("kw", [{"spec_ngram": 2}, {"paged": False}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32,

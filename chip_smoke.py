@@ -8,11 +8,15 @@ Phases, each fatal on failure:
    ``nvcc``, one process each, in parallel;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its paths give it, and time kernel, plain version and the library
-   yardstick against the kernel's bound: ``paged_attn`` at the serving
-   path's shapes; ``act_pool`` bit for bit through its own entry point on
-   CNN1's and CNN2's conv maps at batch 64 and a VGG-scale map in every
-   activation and pooling kind, plus pools of 3 and 4, 3 and 10 channels,
-   the whole tanh domain, average ties and the int32 extremes; ``sc_mac``
+   yardstick against the kernel's bound (device times by CUDA-graph
+   replay for ``paged_attn`` and ``int8_mm``): ``paged_attn`` (split over
+   the page axis, then a combine pass) at the serving path's shapes, one
+   long slot, 64 slots that the plan does not split, and window and
+   verify cases whose plan leaves empty splits; ``act_pool`` bit for bit
+   through its own entry point on CNN1's and CNN2's conv maps at batch 64
+   and a VGG-scale map in every activation and pooling kind, plus pools
+   of 3 and 4, 3 and 10 channels, the whole tanh domain, average ties and
+   the int32 extremes; ``sc_mac``
    bit for bit at the kernel bench's shape, every CNN1 layer at an
    evaluation batch of 64 in every tiling the CNN path runs (full tree,
    blocks of 32 and 8), CNN2's conv0, a full tree at K=3000 (one tree of
@@ -20,8 +24,9 @@ Phases, each fatal on failure:
    ``odin_linear`` at phi4-mini-3.8b's seven projections (sc: kernel
    route == plain route at 2, 8, 16 and 32 rows, the row counts of the sc
    serving path; int8: card == CPU at 8 rows; bit for bit; ``sc_mac`` timed
-   at each projection at 8 rows); ``int8_mm`` to rtol 1e-6 at 128x256x128 and 4096^3,
-   with ``torch._int_mm`` timed as its yardstick; ``int_matmul`` (float64
+   at each projection at 8 rows); ``int8_mm`` bit for bit at 128x256x128,
+   8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
+   yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
    on the card) against the CPU's int32 matmul;
 3. check a small model end to end: the engine on the card (CUDA kernel) and
    on the CPU (plain path) must emit the same greedy tokens in float32;
@@ -110,14 +115,61 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, reps: int = 3) -> float:
+    """Mean device time of one ``fn()`` call without the host's launch
+    overhead: ``iters`` calls captured into one CUDA graph (after a warm-up
+    on a side stream), the graph replayed ``reps`` times between two
+    events.  For kernels whose device time is below the Python wrapper's
+    time a call, which ``cuda_ms`` would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
+
+
+def kernel_us(fn, calls: int = 20) -> dict:
+    """Device time a call of each kernel that ``fn()`` launches, by name,
+    from the profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: (getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0)) / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 # ---------------------------------------------------------------------------
 # phase 2: paged attention kernel vs its plain version
 # ---------------------------------------------------------------------------
 
 def attn_case(name, *, B=8, Q=1, H=24, Hkv=8, D=128, bs=16, P=64, window=0,
-              q_dtype=torch.bfloat16, kv="bf16", special=None, seed=0, copies=1):
+              q_dtype=torch.bfloat16, kv="bf16", special=None, seed=0, copies=1,
+              lengths=None):
     """Inputs for one kernel check; ``copies`` distinct pools so that timed
-    launches cycle through more bytes than the 50 MB L2 holds."""
+    launches cycle through more bytes than the 50 MB L2 holds.  Lengths
+    spread from Q to P·bs unless given as a (low, high) range."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     N = B * P + 1
@@ -136,7 +188,8 @@ def attn_case(name, *, B=8, Q=1, H=24, Hkv=8, D=128, bs=16, P=64, window=0,
         pools.append((kp, vp))
     tables = torch.randperm(N - 1, generator=g, device=dev)[:B * P].reshape(B, P).int()
     rng = np.random.default_rng(seed)
-    lengths = np.linspace(Q, P * bs, B).astype(np.int32)       # spread up to P·bs
+    lo, hi = lengths if lengths is not None else (Q, P * bs)
+    lengths = np.linspace(lo, hi, B).astype(np.int32)          # spread up to P·bs
     rng.shuffle(lengths)
     if special == "zero_len":
         lengths[0] = 0
@@ -145,6 +198,25 @@ def attn_case(name, *, B=8, Q=1, H=24, Hkv=8, D=128, bs=16, P=64, window=0,
     return dict(name=name, q=q if Q > 1 else q[:, 0].contiguous(), pools=pools,
                 tables=tables, lengths=lengths, window=window, Q=Q, G=H // Hkv,
                 kv_scale=16.0 if kv == "int8" else None, special=special)
+
+
+def split_report(c):
+    """The wrapper's split plan for a case (from shapes alone) and, counted
+    here on the host from this case's lengths, how many of its CTAs' page
+    ranges hold no visible key."""
+    from repro_torch.kernels.paged_attn.ops import sm_count, split_plan
+    kp = c["pools"][0][0]
+    bs, Hkv = kp.shape[1], kp.shape[2]
+    B, P = c["tables"].shape
+    pages, n_splits = split_plan(B, Hkv, P, bs, sm_count(0))
+    empty = 0
+    for L in c["lengths"].tolist():
+        hi = min(P, -(-L // bs)) if L > 0 else 0
+        t = L - c["Q"] - c["window"] + 1
+        lo = t // bs if c["window"] and t > 0 else 0
+        empty += sum(min(hi, (s + 1) * pages) <= max(lo, s * pages) for s in range(n_splits))
+    return {"pages_per_split": pages, "n_splits": n_splits, "ctas": B * Hkv * n_splits,
+            "empty_splits": empty * Hkv, "kernels_per_call": 1 if n_splits == 1 else 2}
 
 
 def tol_excess(out, ref):
@@ -217,8 +289,16 @@ def check_paged_attn():
                   special="zero_len", seed=4),
         attn_case("window_q3_int8_f32", Q=3, q_dtype=torch.float32, kv="int8",
                   window=40, D=64, seed=5),
+        # the serving phase's decode: 8 slots of 512-576 tokens
+        attn_case("decode_serving_bf16", lengths=(512, 576), copies=4, seed=6),
+        # one slot of 1024 tokens: 8 CTAs (one a kv-head) in the unsplit design
+        attn_case("long_one_slot_bf16", B=1, lengths=(1024, 1024), copies=4, seed=7),
+        # 64 slots of 16 pages: the plan does not split (n_splits == 1)
+        attn_case("no_split_b64_bf16", B=64, P=16, copies=4, seed=8),
     ]
-    report = None
+    # cases whose plan must leave CTAs with no visible key (exact empty partials)
+    need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
+    lines = {}
     for c in cases:
         kp, vp = c["pools"][0]
         kw = dict(window=c["window"], kv_scale=c["kv_scale"])
@@ -254,10 +334,15 @@ def check_paged_attn():
         peak = BF16_FLOPS if c["q"].dtype == torch.bfloat16 else F32_FLOPS
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
+        plan = split_report(c)
+        if c["name"] in need_empty and plan["empty_splits"] == 0:
+            raise AssertionError(f"paged_attn {c['name']}: the plan left no empty split {plan}")
+        if c["name"].startswith("no_split") and plan["n_splits"] != 1:
+            raise AssertionError(f"paged_attn {c['name']}: the plan splits {plan}")
         line = {"case": c["name"], "max_abs_err": err, "atol_rtol": TOL[ref.dtype],
                 "max_tol_excess": excess, "one_key_short_min_excess": short.min().item(),
-                "bound_ms": bound_ms, "bound_by": bound_by, "live_bytes": nbytes}
-        if c["name"] == "decode_bf16":
+                "bound_ms": bound_ms, "bound_by": bound_by, "live_bytes": nbytes, **plan}
+        if len(c["pools"]) > 1 or c["name"] in ("window_bf16", "verify_q3_bf16"):
             packed = [(qt.contiguous(), kpi, vpi) for kpi, vpi in c["pools"]]
             i = [0]
 
@@ -271,17 +356,21 @@ def check_paged_attn():
                 i[0] += 1
                 paged_attn_ref(qq, kpi, vpi, c["tables"], c["lengths"], q_len=Q, **kw)
 
-            # interleaved: plain, kernel, kernel, plain
-            p1 = cuda_ms(plain, 20)
-            k1 = cuda_ms(kernel, 100)
-            k2 = cuda_ms(kernel, 100)
-            p2 = cuda_ms(plain, 20)
-            lib = cuda_ms(library_call(c), 100)
+            # device time (graph replay), interleaved: plain, kernel, kernel,
+            # plain; then the kernel's eager time a call, host included
+            p1 = graph_ms(plain, 20)
+            k1 = graph_ms(kernel, 100)
+            k2 = graph_ms(kernel, 100)
+            p2 = graph_ms(plain, 20)
+            lib = graph_ms(library_call(c), 100)
             line.update(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
-                        kernel_ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
-            report = line
+                        kernel_ms_runs=[k1, k2], plain_ms_runs=[p1, p2],
+                        eager_ms=cuda_ms(kernel, 100), timer="cuda graph replay")
+            if c["name"] == "decode_bf16":
+                line["kernel_us_by_name"] = kernel_us(kernel)
+        lines[c["name"]] = line
         log("paged_attn check:", json.dumps(line))
-    return report
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -573,6 +662,10 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
         "device_ops_per_step": sum(e.count for e in kernels) / block,
         "sc_mac_device_share": sum(dev_us(e) for e in kernels if "sc_mac" in e.key)
         / (busy * block * 1e6),
+        "paged_attn_ms_per_step": sum(dev_us(e) for e in kernels if "paged_attn" in e.key)
+        / (block * 1e3),
+        "paged_attn_device_share": sum(dev_us(e) for e in kernels if "paged_attn" in e.key)
+        / (busy * block * 1e6),
         "top_device_ms_per_step": {e.key[:60]: dev_us(e) / (block * 1e3) for e in top}}
     log(f"{label}:", json.dumps(report))
     return report
@@ -661,15 +754,24 @@ def time_sc_mac(name, a, w, bk):
 
 
 def check_int8_mm():
-    """The int8 GEMM against its plain version (rtol 1e-6; the int32 sums
-    are exact on both sides), with ``torch._int_mm`` + the scale multiply
-    timed as the yardstick.  Bound: 2·M·N·K at the int8 tensor-core peak
-    against the bytes (int8 operands, float32 scales and output)."""
+    """The int8 GEMM against its plain version, bit for bit (``torch.equal``:
+    the int32 sums are exact on both sides and the epilogue rounds them the
+    same way), at the kernel bench's 128x256x128, phi4's up projection at 8
+    rows (8x3072x8192), a ragged 257x1000x129 and 4096^3.  Yardsticks where
+    ``torch._int_mm`` takes the shape, each + the scale multiply: with w
+    row-major [K, N] as the function receives it, and with w stored
+    transposed (``wt = w.t().contiguous()`` made outside the timed call, as
+    a deployment stores a weight); the faster is ``library_ms``.  Bound:
+    2·M·N·K at the int8 tensor-core peak against the bytes (int8 operands,
+    float32 scales and output).  The kernel's time includes the wrapper's
+    writing of wᵀ (also timed alone).  Times are device times of CUDA graph
+    replays (``graph_ms``), the kernel's eager time a call beside them."""
     from repro_torch.kernels.int8_mm import int8_mm_fused, int8_mm_ref
+    from repro_torch.kernels.int8_mm.int8_mm import k_major_operands
 
     g = torch.Generator(device="cuda").manual_seed(8)
     lines = {}
-    for M, K, N in ((128, 256, 128), (4096, 4096, 4096)):
+    for M, K, N in ((128, 256, 128), (8, 3072, 8192), (257, 1000, 129), (4096, 4096, 4096)):
         a = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int32).to(torch.int8)
         w = torch.randint(-127, 128, (K, N), generator=g, device="cuda", dtype=torch.int32).to(torch.int8)
         sa = torch.rand(M, generator=g, device="cuda") * 0.999 + 0.001
@@ -677,26 +779,43 @@ def check_int8_mm():
         out, ref = int8_mm_fused(a, w, sa, sw), int8_mm_ref(a, w, sa, sw)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        excess = ((out - ref).abs() / (1e-6 * ref.abs())).nan_to_num(0.0).max().item()
-        if not (math.isfinite(err) and excess <= 1.0):
-            raise AssertionError(f"int8_mm {M}x{K}x{N}: |kernel - plain| exceeds rtol 1e-6 "
-                                 f"(max abs {err:.3e})")
-
-        def library():
-            return torch._int_mm(a, w).float() * (sa[:, None] * sw[None, :])
-
-        lib_err = (library() - ref).abs().max().item()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"int8_mm {M}x{K}x{N}: kernel != plain version "
+                                 f"({int((out != ref).sum())} elements, max abs {err:.3e})")
+        wt = w.t().contiguous()
+        yardsticks = {"row_major_w": lambda: torch._int_mm(a, w),
+                      "stored_transposed_w": lambda: torch._int_mm(a, wt.t())}
+        try:                                   # the int32 product alone, no epilogue
+            int_mm_only = graph_ms(lambda: torch._int_mm(a, wt.t()), 5 if M >= 1024 else 50)
+        except RuntimeError:
+            int_mm_only = None
         ops = 2 * M * N * K
         nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
-        iters = 5 if M >= 1024 else 100
-        p1 = cuda_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
-        k1 = cuda_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
-        k2 = cuda_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
-        p2 = cuda_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
-        lib = cuda_ms(library, iters)
-        line = {"case": f"{M}x{K}x{N}", "max_abs_err": err, "max_rtol_excess": excess,
-                "library_max_abs_err": lib_err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2], "library_ms": lib,
+        iters = 5 if M * N * K >= 1 << 30 else 50
+        p1 = graph_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
+        k1 = graph_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
+        k2 = graph_ms(lambda: int8_mm_fused(a, w, sa, sw), iters)
+        p2 = graph_ms(lambda: int8_mm_ref(a, w, sa, sw), iters)
+        prep = graph_ms(lambda: k_major_operands(a, w), iters)
+        lib, lib_err = {}, {}
+        for name, mm in yardsticks.items():
+            try:
+                y = mm().float() * (sa[:, None] * sw[None, :])
+            except RuntimeError as e:          # shapes torch._int_mm does not take
+                lib[name], lib_err[name] = None, str(e).splitlines()[0][:120]
+                continue
+            lib_err[name] = (y - ref).abs().max().item()
+            lib[name] = graph_ms(lambda mm=mm: mm().float() * (sa[:, None] * sw[None, :]),
+                                 iters)
+        timed = [t for t in lib.values() if t is not None]
+        line = {"case": f"{M}x{K}x{N}", "max_abs_err": err, "bit_for_bit": True,
+                "ms": min(k1, k2), "plain_ms": min(p1, p2), "timer": "cuda graph replay",
+                "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                "w_transpose_ms": prep, "eager_ms": cuda_ms(lambda: int8_mm_fused(a, w, sa, sw),
+                                                            iters),
+                "library_ms": min(timed) if timed else None, "library_ms_by_layout": lib,
+                "int_mm_stored_transposed_without_scale_ms": int_mm_only,
+                "library_max_abs_err": lib_err,
                 "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS else "operations",
                 "tops": ops / (min(k1, k2) * 1e-3) / 1e12}
@@ -1189,7 +1308,8 @@ def main():
     for source, text in texts.items():
         log(f"--- nvcc {source.name} ---\n{text.strip()}")
 
-    report = check_paged_attn()
+    attn_lines = check_paged_attn()
+    report = attn_lines["decode_bf16"]
     act_launches, act_lines = check_act_pool()
     sc_lines = check_sc_mac()
     _, sc_rows_checked = check_odin_linear_full_width()
@@ -1217,7 +1337,10 @@ def main():
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"], "plain_ms": report["plain_ms"],
         "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
-        "library_ms": report["library_ms"],
+        "library_ms": report["library_ms"], "n_splits": report["n_splits"],
+        "kernels_per_call": report["kernels_per_call"],
+        "timed_cases": {k: {x: v.get(x) for x in ("ms", "bound_ms", "library_ms", "n_splits")}
+                        for k, v in attn_lines.items() if "ms" in v},
     }, {
         "name": "sc_mac", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",
@@ -1237,6 +1360,7 @@ def main():
         "ms": int8_rep["ms"], "plain_ms": int8_rep["plain_ms"],
         "bound_ms": int8_rep["bound_ms"], "bound_by": int8_rep["bound_by"],
         "library_ms": int8_rep["library_ms"],
+        "library_ms_by_layout": int8_rep["library_ms_by_layout"], "tops": int8_rep["tops"],
     }, {
         "name": "act_pool", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/act_pool/csrc/act_pool.cu",

@@ -5,11 +5,13 @@ It packs GQA head groups (and a small leading query axis ``[B, Q, H, D]``,
 the multi-token tile) into the kernel's ``[B, Hkv, Q·G, D]`` query tile,
 then runs
 
-* the hand-written CUDA kernel (``csrc/paged_attn.cu``) for CUDA tensors —
-  it launches or raises, it never falls back; or
+* the hand-written CUDA kernels (``csrc/paged_attn.cu``) for CUDA tensors:
+  the page axis split across CTAs by :func:`split_plan` (from the shapes
+  alone), then a combine pass; they launch or raise, never fall back; or
 * the plain PyTorch version (``ref.py``) for CPU tensors.
 
-``paged_attention.launches`` counts kernel launches (plain runs do not count).
+``paged_attention.launches`` counts calls that launched the kernels, one a
+call whether or not it was split (plain runs do not count).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.kernels.paged_attn.ref import paged_attn_ref
 
-__all__ = ["paged_attention", "paged_attn_cuda", "SOURCE"]
+__all__ = ["paged_attention", "paged_attn_cuda", "split_plan", "launch_plan", "SOURCE"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attn.cu"
 
@@ -31,6 +33,47 @@ _Q_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 _MAX_BLOCK = 64
 _MAX_SMEM = 232_448        # bytes of shared memory one H100 block may use
+_WARPS = 4                 # warps of a CTA of the split kernel
+_LANE_VALUES = 16          # values of D a lane owns
+_MAX_SPLITS = 1024         # partials the combine kernel stages in shared memory
+_STAGE_BYTES = 32 * 1024   # K and V of one ring stage (of two), while a page fits
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(B: int, Hkv: int, P: int, bs: int, n_sm: int) -> tuple[int, int]:
+    """``(pages_per_split, n_splits)`` for a ``[B, P]`` table: split the page
+    axis so that ``B·Hkv·n_splits`` CTAs give about two a streaming
+    multiprocessor, a split holding at least 32 keys and a power of two of
+    pages.  A function of the shapes alone: it never reads ``lengths`` or
+    ``tables``, which would make the host wait for the device every layer."""
+    if P <= 0:
+        return 1, 1
+    want = max(1, -(-2 * n_sm // max(1, B * Hkv)))          # splits a slot
+    pages = max(1, -(-P // want))
+    pages = 1 << (pages.bit_length() - 1)                    # round down to 2^k
+    pages = min(P, max(pages, -(-32 // bs)))
+    return pages, -(-P // pages)
+
+
+def launch_plan(QG: int, D: int, bs: int, kv_elt: int, pages_per_split: int) -> dict:
+    """Rows a CTA holds (RT), pages a ring stage holds and dynamic shared
+    memory of the split kernel.  A lane owns 16 values of D for each of its
+    RT ≤ 4 query rows (query tile and accumulator in registers); a tile of
+    more rows is cut into chunks of 4 or 3 rows, whichever pads less.  The
+    ring has two stages of up to 32 KB of K and V (one page when a page is
+    larger), no more pages than a split holds."""
+    rt = QG if QG <= 4 else min((4, 3), key=lambda r: (-(-QG // r) * r, -r))
+    groups = _WARPS * 32 // (D // _LANE_VALUES)              # lane groups a CTA
+    page = bs * D * kv_elt                                   # K (or V) of one page
+    pages = max(1, min(pages_per_split, _STAGE_BYTES // (2 * page)))
+    merge = 4 * groups * rt * (D + 2)
+    return dict(rt=rt, pages_per_stage=pages, smem=max(2 * 2 * pages * page, merge),
+                row_chunks=-(-QG // rt))
 
 
 @functools.cache
@@ -38,16 +81,18 @@ def _library() -> ctypes.CDLL:
     from repro_torch.kernels.build import load
     lib = load(SOURCE)
     fn = lib.paged_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
 def paged_attn_cuda(q, k_pool, v_pool, tables, lengths, *, window: int = 0,
                     kv_scale=None, q_len: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel on a packed tile: q [B,Hkv,Q·G,D] → same shape
-    and dtype.  Checks what the kernel takes and raises on anything else."""
+    """Launch the CUDA kernels on a packed tile: q [B,Hkv,Q·G,D] → same shape
+    and dtype.  Checks what the kernel takes and raises on anything else.
+    One call is one split kernel, plus a combine kernel when the plan splits
+    the page axis."""
     dev = q.device
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("tables", tables), ("lengths", lengths)):
@@ -75,19 +120,31 @@ def paged_attn_cuda(q, k_pool, v_pool, tables, lengths, *, window: int = 0,
     if tables.dim() != 2 or tables.shape[0] != B or tuple(lengths.shape) != (B,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match batch {B}")
-    smem = 4 * (2 * QG * D + bs * (D + 1) + bs * D + QG * bs + 3 * QG)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"query tile of {QG} rows needs {smem} B of shared memory")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must start on a 16-byte boundary (16-byte async copies)")
     out = torch.empty_like(q)
-    if B == 0:
+    if B == 0 or QG == 0:
         return out
+    P = tables.shape[1]
+    pages, n_splits = split_plan(B, Hkv, P, bs, sm_count(dev.index or 0))
+    if n_splits > _MAX_SPLITS:
+        raise ValueError(f"{P} pages make {n_splits} splits, over {_MAX_SPLITS}")
+    plan = launch_plan(QG, D, bs, k_pool.element_size(), pages)
+    if plan["smem"] > _MAX_SMEM:
+        raise ValueError(f"block size {bs} needs {plan['smem']} B of shared memory")
+    if max(B * Hkv, plan["row_chunks"]) > 65_535:
+        raise ValueError(f"grid of {B}x{Hkv} heads and {plan['row_chunks']} row chunks "
+                         "exceeds the launch limit")
+    ws = (torch.empty(B * Hkv * n_splits * QG * (D + 2), dtype=torch.float32, device=dev)
+          if n_splits > 1 else out)
     kv_mul = 1.0 / kv_scale if kv_scale is not None else 1.0
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().paged_attn_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, Hkv, QG, D, bs, tables.shape[1], N,
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, Hkv, QG, D, bs, P, N,
         q_len, int(window), 1.0 / math.sqrt(D), kv_mul,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], stream)
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype], pages, n_splits,
+        plan["rt"], plan["pages_per_stage"], plan["smem"], stream)
     if err:
         raise RuntimeError(f"paged_attn kernel launch failed: cudaError {err}")
     paged_attention.launches += 1

@@ -62,3 +62,46 @@ def test_kernel_bench_entry_point_on_cpu():
     assert all(out[k] > 0 for k in ("sc_matmul_plain_ms", "sc_matmul_fused_ms",
                                     "expected_int_surrogate_ms", "int8_mm_fused_ms"))
     assert out["sc_mac_structure"]["tiles"] == (512 // 8) * (512 // 8) * (4096 // 256)
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 1000, 7), (3, 17, 129), (8, 64, 3), (2, 1, 5),
+                                   (257, 1000, 129)])
+def test_k_major_operands_give_the_unpadded_product(M, K, N):
+    """The kernel's operand preparation (wᵀ written K-major, K padded to a
+    multiple of 16 with zeros) gives, through the plain version, exactly
+    the unpadded product."""
+    from repro_torch.kernels.int8_mm.int8_mm import k_major_operands
+    rng = np.random.default_rng(M * K + N)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    sa = torch.from_numpy(rng.uniform(0.001, 1.0, (M,)).astype(np.float32))
+    sw = torch.from_numpy(rng.uniform(0.001, 1.0, (N,)).astype(np.float32))
+    a_k, w_t = k_major_operands(a, w)
+    k_hat = -(-K // 16) * 16
+    assert a_k.shape == (M, k_hat) and w_t.shape == (N, k_hat)
+    assert a_k.is_contiguous() and w_t.is_contiguous() and a_k.dtype == w_t.dtype == torch.int8
+    assert torch.all(a_k[:, K:] == 0) and torch.all(w_t[:, K:] == 0)
+    assert torch.equal(w_t[:, :K], w.t())
+    assert torch.equal(int8_mm_ref(a_k, w_t.t(), sa, sw), int8_mm_ref(a, w, sa, sw))
+
+
+def test_k_major_operands_pad_a_misaligned_a():
+    """An ``a`` view that does not start on a 16-byte boundary is copied."""
+    from repro_torch.kernels.int8_mm.int8_mm import k_major_operands
+    base = torch.arange(5 * 32 + 1, dtype=torch.int32).to(torch.int8)
+    a = base[1:].reshape(5, 32)
+    w = torch.ones((32, 4), dtype=torch.int8)
+    a_k, w_t = k_major_operands(a, w)
+    assert a_k.data_ptr() % 16 == 0 and torch.equal(a_k, a)
+    aligned = torch.zeros((4, 32), dtype=torch.int8)
+    if aligned.data_ptr() % 16 == 0:
+        assert k_major_operands(aligned, w)[0] is aligned
+
+
+@pytest.mark.parametrize("M,K,N", [(2 ** 16, 2 ** 15, 1), (1, 2 ** 15, 2 ** 16),
+                                   (2 ** 16, 1, 2 ** 15)])
+def test_shapes_the_kernel_cannot_take_are_rejected(M, K, N):
+    from repro_torch.kernels.int8_mm.int8_mm import check_shapes
+    with pytest.raises(ValueError):
+        check_shapes(M, K, N)
+    assert check_shapes(4096, 4096, 4096) == 4096 and check_shapes(257, 1000, 129) == 1008

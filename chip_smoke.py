@@ -9,22 +9,27 @@ Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its paths give it, and time kernel, plain version and the library
    yardstick against the kernel's bound (device times by CUDA-graph
-   replay for ``paged_attn`` and ``int8_mm``): ``paged_attn`` (split over
+   replay for every kernel): ``paged_attn`` (split over
    the page axis, then a combine pass) at the serving path's shapes, one
    long slot, 64 slots that the plan does not split, and window and
    verify cases whose plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
    and a VGG-scale map in every activation and pooling kind, plus pools
    of 3 and 4, 3 and 10 channels, the whole tanh domain, average ties and
-   the int32 extremes; ``sc_mac``
+   the int32 extremes, timed in every kind on the VGG-scale map with its
+   share of the bytes bound; ``sc_mac``
    bit for bit at the kernel bench's shape, every CNN1 layer at an
    evaluation batch of 64 in every tiling the CNN path runs (full tree,
    blocks of 32 and 8), CNN2's conv0, a full tree at K=3000 (one tree of
-   4096 leaves, past the JAX wrapper's 2048) and a 512x4096x512 layer;
+   4096 leaves, past the JAX wrapper's 2048) and a 512x4096x512 layer,
+   each with its launch plan (tile, K splits) and two bounds (the MUX tree
+   as an OR of masked leaves, and as drawn), then 13 untimed variants
+   (int32 clamps, 1-, 4- and 32-word streams, 257 levels, short trees);
    ``odin_linear`` at phi4-mini-3.8b's seven projections (sc: kernel
    route == plain route at 2, 8, 16 and 32 rows, the row counts of the sc
    serving path; int8: card == CPU at 8 rows; bit for bit; ``sc_mac`` timed
-   at each projection at 8 rows); ``int8_mm`` bit for bit at 128x256x128,
+   at each projection at 2 rows, the sc decode step's, and 8; the kernels
+   line gives these times with their bounds and plans); ``int8_mm`` bit for bit at 128x256x128,
    8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
    yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
    on the card) against the CPU's int32 matmul;
@@ -64,7 +69,9 @@ after; the kernels line gives each kernel's total and, where it has more
 than one path, the count of each.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--phases act_pool,sc_mac,odin_linear,
+serve_sc`` (any subset) runs only those checks, for a focused call, and
+prints no kernels line.
 """
 from __future__ import annotations
 
@@ -707,13 +714,97 @@ def check_sc_mac():
         a = torch.randint(0, 256, (M, K), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
         w = torch.randint(0, 256, (K, N), generator=g, device="cuda", dtype=torch.int32).to(torch.uint8)
         lines[name] = time_sc_mac(name, a, w, tile_k(K, block_k))
+    check_sc_mac_variants(g)
     return lines
+
+
+def check_sc_mac_variants(g):
+    """Kernel == plain version bit for bit on the paths the timed cases do
+    not take: int32 operands past both ends of the table (clamped), fewer
+    than 256 levels (the 16-byte path's clamp), streams of 1 word (padded to
+    2), 4 and 32 words (one copy of B's LUT), levels past 255, N off the
+    16-byte grid, one row, and trees of 2, 4 and 16 leaves."""
+    from repro_torch.core import stochastic as sc
+    from repro_torch.core.odin_linear import get_luts
+    from repro_torch.kernels.sc_mac import sc_mac_cuda, sc_mac_plain, tile_k
+
+    cases = [  # stream, levels, M, K, N, block_k, dtype, operand range
+        (256, 256, 2, 300, 96, 32, torch.int32, (-40, 300)),
+        (256, 256, 90, 70, 5, 0, torch.int32, (-40, 300)),
+        (256, 200, 2, 500, 64, 32, torch.uint8, (0, 256)),
+        (256, 256, 3, 100, 70, 32, torch.uint8, (0, 256)),
+        (256, 256, 1, 1000, 48, 32, torch.uint8, (0, 256)),
+        (256, 256, 5, 200, 33, 2, torch.uint8, (0, 256)),
+        (256, 256, 40, 90, 6, 4, torch.uint8, (0, 256)),
+        (256, 256, 4, 130, 20, 16, torch.uint8, (0, 256)),
+        (128, 100, 4, 150, 40, 0, torch.uint8, (0, 256)),
+        (32, 33, 3, 80, 17, 8, torch.int32, (-5, 40)),
+        (256, 257, 2, 120, 48, 32, torch.int32, (-9, 300)),
+        (1024, 257, 2, 120, 40, 32, torch.int32, (-9, 300)),
+        (1024, 257, 50, 40, 3, 0, torch.int32, (-9, 300)),
+    ]
+    for stream, levels, M, K, N, block_k, dt, (lo, hi) in cases:
+        spec = sc.StreamSpec(stream, levels)
+        luts = get_luts(stream, levels, 1, device="cuda")
+        a = torch.randint(lo, hi, (M, K), generator=g, device="cuda", dtype=torch.int32).to(dt)
+        w = torch.randint(lo, hi, (K, N), generator=g, device="cuda", dtype=torch.int32).to(dt)
+        bk = tile_k(K, block_k)
+        out = sc_mac_cuda(a, w, *luts, block_k=bk)
+        ref = sc_mac_plain(a, w, *luts, spec, bk)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"sc_mac variant stream {stream} levels {levels} {M}x{K}x{N} "
+                                 f"bk {bk} {dt}: kernel != plain "
+                                 f"(max abs {(out - ref).abs().max().item()})")
+    log(f"sc_mac: kernel == plain version bit for bit in {len(cases)} variant cases")
+
+
+def adaptive_iters(fn, target_ms: float = 20.0, most: int = 100) -> int:
+    """Calls of ``fn`` that fill about ``target_ms`` of device time, from one
+    eager call after a warm-up (at least 1, at most ``most``)."""
+    fn()
+    ms = cuda_ms(fn, 1, warmup=0)
+    return max(1, min(most, int(target_ms / max(ms, 1e-3))))
+
+
+def sc_mac_bound(M, K, N, bk, W):
+    """Least device time of ``sc_mac`` on this card, from its 32-bit lane
+    operations and its bytes.  The MUX tree's root takes each bit from
+    exactly one leaf, so it is the OR of the leaves' products masked by
+    disjoint select masks: one AND-OR (a single LOP3) per leaf word, one
+    popcount per tree word, one B→S gather per operand element and word.
+    ``tree_ops`` counts the tree as it is drawn (an AND per leaf word, a mux
+    per node, a popcount per tree word), kept beside it for comparison."""
+    n_tiles = -(-K // bk)
+    gathers = W * (M * K + K * N)
+    ops = M * N * W * (K + n_tiles) + gathers
+    tree_ops = M * N * W * (K + n_tiles * (bk - 1) + n_tiles) + gathers
+    nbytes = M * K + K * N + 4 * M * N + 4 * (2 * 256 * W + bk.bit_length() * W)
+    t_ops, t_bytes = ops / INT32_OPS, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_tree_count": max(t_bytes, tree_ops / INT32_OPS) * 1e3,
+            "int32_ops": ops, "int32_ops_tree_count": tree_ops, "bytes": nbytes}
+
+
+def sc_plan_report(M, K, N, bk, W):
+    """The kernel's launch plan for one shape (tile, splits), where the
+    wrapper has one."""
+    from repro_torch.kernels.sc_mac import sc_mac as sc_mod
+    plan = getattr(sc_mod, "sc_plan", None)
+    if plan is None:
+        return {}
+    from repro_torch.kernels.paged_attn.ops import sm_count
+    p = plan(M, N, K, bk, W, sm_count(0))
+    return {"plan": {k: p[k] for k in ("swap", "mm", "nt", "threads", "row_blocks",
+                                       "col_blocks", "chunks_per_split", "n_splits",
+                                       "group", "ctas")}}
 
 
 def time_sc_mac(name, a, w, bk):
     """``sc_mac`` on uint8 rails ``a`` [M, K] and ``w`` [K, N] in trees of
-    ``bk`` leaves: kernel == plain version bit for bit, both timed
-    (plain, kernel, kernel, plain), and the bound of the function."""
+    ``bk`` leaves: kernel == plain version bit for bit, both timed by
+    CUDA-graph replay (plain, kernel, kernel, plain), the bound of the
+    function and the kernel's plan."""
     from repro_torch.core import stochastic as sc
     from repro_torch.core.odin_linear import get_luts
     from repro_torch.kernels.sc_mac import sc_mac_plain, sc_mac_popcounts
@@ -734,23 +825,28 @@ def time_sc_mac(name, a, w, bk):
     if not torch.equal(out, ref):
         raise AssertionError(f"sc_mac {name}: kernel popcounts differ from the plain "
                              f"version (max abs {err})")
-    n_tiles = -(-K // bk)
-    W = spec.n_words
-    ops = M * N * W * (K + n_tiles * (bk - 1) + n_tiles) + W * (M * K + K * N)
-    nbytes = M * K + K * N + 4 * M * N + 4 * (lut_a.numel() + lut_w.numel() + bk.bit_length() * W)
-    big = M * N * bk >= 1 << 24
-    p1 = cuda_ms(plain, 1, warmup=1) if big else cuda_ms(plain, 3)
-    k1 = cuda_ms(kernel, 5 if big else 50)
-    k2 = cuda_ms(kernel, 5 if big else 50)
-    p2 = cuda_ms(plain, 1, warmup=0) if big else cuda_ms(plain, 3)
-    line = {"case": name, "M": M, "K": K, "N": N, "block_k": bk, "tiles": n_tiles,
+    ki, pi = adaptive_iters(kernel), adaptive_iters(plain, most=20)
+    reps = 3 if pi > 1 else 1
+    p1 = graph_ms(plain, pi, reps=reps)
+    k1 = graph_ms(kernel, ki)
+    k2 = graph_ms(kernel, ki)
+    p2 = graph_ms(plain, pi, reps=reps)
+    line = {"case": name, "M": M, "K": K, "N": N, "block_k": bk, "tiles": -(-K // bk),
             "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT32_OPS else "operations",
-            "int32_ops": ops, "bytes": nbytes, "library_ms": None}
+            "timer": "cuda graph replay", "eager_ms": cuda_ms(kernel, ki), "library_ms": None,
+            **sc_mac_bound(M, K, N, bk, spec.n_words), **sc_plan_report(M, K, N, bk,
+                                                                        spec.n_words)}
+    if name in SC_PROFILED:
+        line["kernel_us_by_name"] = kernel_us(kernel)
     log("sc_mac check:", json.dumps(line))
     return line
+
+
+# sc_mac cases whose device time is also split by kernel (the launch's
+# memset of a split K apart from the kernel) by the profiler
+SC_PROFILED = ("cnn1_conv0_b64_tree", "cnn1_fc3_b64_hybrid32", "phi4_k_2x3072x1024_hybrid32",
+               "phi4_gate_2x3072x8192_hybrid32")
 
 
 def check_int8_mm():
@@ -980,7 +1076,9 @@ def check_act_pool():
     division, tanhf, a multiply, a rint and two clamps per input for tanh,
     counted as 24 float32 operations) take less.  No single PyTorch call
     computes the function: the pooling operators take floating point only
-    and no 8-bit activation, so there is no library time."""
+    and no 8-bit activation, so there is no library time.  Times are device
+    times by CUDA-graph replay: relu/max on each map and every act x pool
+    kind on the VGG-scale map, each with its share of the bound."""
     from repro_torch.kernels.act_pool import act_pool, act_pool_cuda, act_pool_ref
     from repro_torch.kernels.act_pool.act_pool import ACTS, POOL_KINDS
 
@@ -1036,7 +1134,8 @@ def check_act_pool():
         raise AssertionError(f"act_pool avg ties: 0.5 -> {ties[2].item()}, 1.5 -> {ties[6].item()}")
 
     lines = {}
-    for m, a, k in [(m, "relu", "max") for m in maps] + [("vgg_8x224x224x64", "tanh", "avg")]:
+    timed = [(m, "relu", "max") for m in maps if m != "vgg_8x224x224x64"]
+    for m, a, k in timed + [("vgg_8x224x224x64", a, k) for a, k in variants]:
         x = maps[m]
         B, H, W, C = x.shape
         nbytes = 4 * x.numel() + 4 * x.numel() // 4
@@ -1049,11 +1148,18 @@ def check_act_pool():
         def plain():
             return act_pool_ref(x, 2, a, k)
 
-        p1, k1, k2, p2 = cuda_ms(plain, 10), cuda_ms(kernel, 50), cuda_ms(kernel, 50), cuda_ms(plain, 10)
+        # device time by graph replay (plain, kernel, kernel, plain), the
+        # kernel's eager time a call (host included) beside it
+        p1, k1, k2, p2 = (graph_ms(plain, 10), graph_ms(kernel, 50), graph_ms(kernel, 50),
+                          graph_ms(plain, 10))
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
         line = {"case": f"{m}_{a}_{k}", "max_abs_err": max(checked), "ms": min(k1, k2),
                 "plain_ms": min(p1, p2), "kernel_ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
-                "bound_ms": max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3,
+                "timer": "cuda graph replay", "eager_ms": cuda_ms(kernel, 50),
+                "bound_ms": bound_ms,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops else "operations",
+                "bound_share": bound_ms / min(k1, k2),
+                "at_least_half_bound": bound_ms / min(k1, k2) >= 0.5,
                 "bytes": nbytes, "library_ms": None}
         log("act_pool timing:", json.dumps(line))
         lines[line["case"]] = line
@@ -1082,6 +1188,7 @@ class _PlainScRoute:
 
 
 SC_ROWS = (2, 8, 16, 32)        # rows of the sc serving path: decode, 8 slots, tiles
+SC_TIMED_ROWS = (2, 8)          # the sc decode step's rows, and a decode step of 8 slots
 
 
 class _RecordingScRoute:
@@ -1104,8 +1211,9 @@ def check_odin_linear_full_width():
     serving path's decode step; 16 and 32: its prefill tiles; 8: a decode
     step of 8 slots), int8 on the card (float64 rail dot) against int8 on
     the CPU (int32) at 8 rows.  Then ``sc_mac`` timed on each projection's
-    a+ . w+ rails at 8 rows against its bound.  Returns the timing lines and
-    the row counts checked."""
+    a+ . w+ rails at 2 rows (the sc decode step's) and 8 against its bound.
+    Returns the timing lines, keyed (projection, rows), and the row counts
+    checked."""
     from repro_torch.core.odin_linear import OdinConfig, odin_linear
     from repro_torch.core.quant import quantize_signed_tworail
     from repro_torch.kernels.sc_mac import sc_mac_cuda
@@ -1140,10 +1248,11 @@ def check_odin_linear_full_width():
             if not torch.equal(ys, yp) or not torch.isfinite(ys).all():
                 raise AssertionError(f"odin_linear sc {name} M={M}: kernel route != plain "
                                      f"route (max abs {(ys - yp).abs().max().item():.3e})")
-            if M == 8:
+            if M in SC_TIMED_ROWS:
                 a_pos = quantize_signed_tworail(x)[0]
                 w_pos = quantize_signed_tworail(w)[0]
-                lines[name] = time_sc_mac(f"phi4_{name}_8x{K}x{N}_hybrid32", a_pos, w_pos, 32)
+                lines[(name, M)] = time_sc_mac(f"phi4_{name}_{M}x{K}x{N}_hybrid32", a_pos,
+                                               w_pos, 32)
     log(f"odin_linear at phi4-mini's projections: sc kernel route == plain route at "
         f"{list(SC_ROWS)} rows, int8 card == CPU at 8 rows, bit for bit")
     return lines, set(SC_ROWS)
@@ -1182,7 +1291,13 @@ def serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked):
         params, cfg.with_overrides(odin_mode="int8"), prompts, block=2, max_new=12,
         label="int8 decode profile (8 slots, 2 steps each block)")
     out["int8"] = dict(line, launches=r["launches"])
+    out["sc"] = serve_odin_sc(cfg, params, prompts, sc_rows_checked)
+    return out
 
+
+def serve_odin_sc(cfg, params, prompts, sc_rows_checked):
+    """The sc half of :func:`serve_odin`: 2 slots, 2 prompts of 16 tokens, 4
+    greedy tokens each, then the sc decode profile."""
     sc_prompts = [p[:16] for p in prompts[:2]]
     odin_module = sys.modules["repro_torch.core.odin_linear"]
     kernel_route = odin_module.sc_mac_ops
@@ -1213,8 +1328,7 @@ def serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked):
     line["decode_profile"] = profile_decode(
         params, cfg.with_overrides(odin_mode="sc"), sc_prompts, block=1, max_new=8,
         label="sc decode profile (2 slots, 1 step each block)")
-    out["sc"] = dict(line, launches=r["launches"])
-    return out
+    return dict(line, launches=r["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -1282,7 +1396,38 @@ def guarded_faults(cfg, params, rng):
     return {"guarded_nan": hit["launches"], "chaos": c["launches"]}
 
 
-def main():
+# phases that ``--phases`` may pick, for a focused run; no argument runs all
+PICKABLE = ("act_pool", "sc_mac", "odin_linear", "serve_sc")
+
+
+def run_picked(picked, name, smi):
+    """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
+    checked row counts it needs); no kernels line."""
+    if "act_pool" in picked:
+        check_act_pool()
+    if "sc_mac" in picked:
+        check_sc_mac()
+    if "odin_linear" in picked or "serve_sc" in picked:
+        _, rows = check_odin_linear_full_width()
+    if "serve_sc" in picked:
+        cfg, params, prompts, _ = load_phi4()
+        serve_odin_sc(cfg, params, prompts, rows)
+    log(smi)
+    log(json.dumps({"ok": True, "phases": sorted(picked),
+                    "device": {"platform": "gpu", "kind": name,
+                               "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke run of the port (no "
+                                             "arguments: every phase).")
+    ap.add_argument("--phases", default="",
+                    help=f"comma-separated subset of {', '.join(PICKABLE)}")
+    picked = {x for x in ap.parse_args(argv).phases.split(",") if x}
+    if not picked <= set(PICKABLE):
+        ap.error(f"unknown phases {sorted(picked - set(PICKABLE))}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1307,12 +1452,14 @@ def main():
     log(f"kernel build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s")
     for source, text in texts.items():
         log(f"--- nvcc {source.name} ---\n{text.strip()}")
+    if picked:
+        return run_picked(picked, name, smi)
 
     attn_lines = check_paged_attn()
     report = attn_lines["decode_bf16"]
     act_launches, act_lines = check_act_pool()
     sc_lines = check_sc_mac()
-    _, sc_rows_checked = check_odin_linear_full_width()
+    phi4_sc, sc_rows_checked = check_odin_linear_full_width()
     int8_lines = check_int8_mm()
     check_rail_dot()
     small_model_card_vs_cpu()
@@ -1347,10 +1494,13 @@ def main():
         "replaces": "src/repro/kernels/sc_mac/sc_mac.py:60",
         "launches": sum(sc_launches.values()), "launches_by_path": sc_launches,
         "shape": sc_rep["case"],
-        "max_abs_err": max(x["max_abs_err"] for x in sc_lines.values()),
+        "max_abs_err": max(x["max_abs_err"] for x in [*sc_lines.values(), *phi4_sc.values()]),
         "ms": sc_rep["ms"], "plain_ms": sc_rep["plain_ms"],
         "bound_ms": sc_rep["bound_ms"], "bound_by": sc_rep["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "plan": sc_rep.get("plan"),
+        "phi4_rows": {f"{proj}_{M}": {x: v.get(x) for x in
+                                      ("ms", "bound_ms", "bound_ms_tree_count", "plan")}
+                      for (proj, M), v in phi4_sc.items()},
     }, {
         "name": "int8_mm", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/int8_mm/csrc/int8_mm.cu",

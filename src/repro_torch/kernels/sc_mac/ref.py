@@ -10,7 +10,10 @@
 Both walk the rows of ``a`` in chunks so the ``[m, N, bk, W]`` product
 streams stay near ``_CHUNK_ELEMS`` elements; chunking changes no bit.
 ``tile_k`` is the one place that decides the regime, and ``sc_mac_plain``
-picks the plain version it needs.
+picks the plain version it needs.  ``sc_mac_split_ref`` is the CUDA
+kernel's algorithm in plain PyTorch, for the tests: the tree as an OR of
+leaves under disjoint masks (``leaf_masks``), K cut into splits of 32-leaf
+chunks, popcounts summed within and across splits.
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import stochastic as sc
+from repro_torch.kernels.sc_mac.sc_mac import CHUNK
 
 __all__ = ["sc_matmul_tree_ref", "sc_matmul_hybrid_ref", "sc_mac_plain", "ranks_from_lut",
-           "tile_k"]
+           "tile_k", "leaf_masks", "sc_mac_split_ref"]
 
 _CHUNK_ELEMS = 1 << 25
 
@@ -111,3 +115,58 @@ def sc_mac_plain(a_q, w_q, lut_a, lut_w, selects, spec: sc.StreamSpec, block_k: 
     if bk == 1 << sc.tree_depth(a_q.shape[-1]):
         return sc_matmul_tree_ref(a_q, w_q, lut_a, lut_w, selects, spec)
     return sc_matmul_hybrid_ref(a_q, w_q, lut_a, lut_w, selects, spec, bk)
+
+
+def leaf_masks(selects: torch.Tensor, bk: int) -> torch.Tensor:
+    """A MUX tree of ``bk`` leaves as masks: int32 ``[bk, W]``, row p the
+    bits the root takes from leaf p.  Level l passes the even child where
+    its select bit is 1, so leaf p owns the bits where ``sel_l`` is
+    ``1 - bit_l(p)`` at every level; the rows are disjoint and cover every
+    bit, and the root is the OR over p of ``mask_p & leaf_p``."""
+    p = torch.arange(bk, device=selects.device)
+    m = torch.full((bk, selects.shape[-1]), -1, dtype=torch.int32, device=selects.device)
+    for level in range(bk.bit_length() - 1):
+        odd = ((p >> level) & 1).bool()[:, None]
+        m &= torch.where(odd, ~selects[level][None], selects[level][None])
+    return m
+
+
+def sc_mac_split_ref(a_q, w_q, lut_a, lut_w, selects, block_k: int, *, chunks_per_split: int,
+                     group: int, swap: bool = False) -> torch.Tensor:
+    """The CUDA kernel's algorithm (``csrc/sc_mac.cu``) → int32 [M, N]: the
+    streams of one operand (a's, or w's when ``swap``) masked with
+    ``leaf_masks`` of their leaf's position in its tree of
+    ``tile_k(K, block_k)`` leaves; K cut into the kernel's chunks of
+    ``CHUNK`` leaves and the chunks into splits of ``chunks_per_split``; in
+    a chunk, the products
+    OR-ed over each ``group`` of leaves and popcounted; the popcounts summed
+    within a split, then across splits."""
+    M, K = a_q.shape
+    N = w_q.shape[1]
+    bk = tile_k(K, block_k)
+    if CHUNK % group or bk % group:
+        raise ValueError(f"group {group} must divide the chunk {CHUNK} and the tree {bk}")
+    kmask = leaf_masks(selects, bk)[torch.arange(K, device=a_q.device) % bk]   # [K, W]
+    sa = sc.b_to_s(a_q, lut_a)                                  # [M, K, W]
+    sw = sc.b_to_s(w_q, lut_w).permute(1, 0, 2)                 # [N, K, W]
+    if swap:
+        sw = sw & kmask[None]
+    else:
+        sa = sa & kmask[None]
+    n_chunks = -(-K // CHUNK)
+    pad = n_chunks * CHUNK - K
+    sa = torch.nn.functional.pad(sa, (0, 0, 0, pad))
+    sw = torch.nn.functional.pad(sw, (0, 0, 0, pad))
+    out = torch.zeros((M, N), dtype=torch.int32, device=a_q.device)
+    for c0 in range(0, n_chunks, chunks_per_split):
+        part = torch.zeros_like(out)
+        for c in range(c0, min(c0 + chunks_per_split, n_chunks)):
+            k0 = c * CHUNK
+            prod = sa[:, None, k0:k0 + CHUNK] & sw[None, :, k0:k0 + CHUNK]   # [M, N, CHUNK, W]
+            prod = prod.reshape(M, N, CHUNK // group, group, -1)
+            acc = prod[:, :, :, 0]
+            for j in range(1, group):
+                acc = acc | prod[:, :, :, j]
+            part += sc.popcount32(acc).sum(dim=(-1, -2)).to(torch.int32)
+        out += part
+    return out

@@ -15,9 +15,12 @@ Phases, each fatal on failure:
    verify cases whose plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
    and a VGG-scale map in every activation and pooling kind, plus pools
-   of 3 and 4, 3 and 10 channels, the whole tanh domain, average ties and
-   the int32 extremes, timed in every kind on the VGG-scale map with its
-   share of the bytes bound; ``sc_mac``
+   of 3 to 7 (5 to 7 run the kernel's loop for any pool size), 1 to 65
+   channels, odd output widths, an input at an odd storage offset, maps
+   below one CTA and over several grid-stride passes, the whole tanh
+   domain, average ties and the int32 extremes, the launcher's grid equal
+   to ``launch_plan``'s in every case, timed in every kind on each map with
+   its share of the bytes bound and beside the per-kernel floor; ``sc_mac``
    bit for bit at the kernel bench's shape, every CNN1 layer at an
    evaluation batch of 64 in every tiling the CNN path runs (full tree,
    blocks of 32 and 8), CNN2's conv0, a full tree at K=3000 (one tree of
@@ -1070,16 +1073,24 @@ def check_act_pool():
     JAX package launches it): every act x pool_kind at p=2 on CNN1's conv
     map at batch 64, CNN2's and a VGG-scale map, the launch count set to 0
     just before and read just after.  Then cases that only compare: p=3 and
-    4, C=3 and 10, the whole tanh domain, avg ties, the int32 extremes.
-    Bound: bytes (each int32 input read once, each output written once);
-    the operations (a clamp and a max or add per input for relu, a float
-    division, tanhf, a multiply, a rint and two clamps per input for tanh,
-    counted as 24 float32 operations) take less.  No single PyTorch call
-    computes the function: the pooling operators take floating point only
-    and no 8-bit activation, so there is no library time.  Times are device
-    times by CUDA-graph replay: relu/max on each map and every act x pool
-    kind on the VGG-scale map, each with its share of the bound."""
-    from repro_torch.kernels.act_pool import act_pool, act_pool_cuda, act_pool_ref
+    4, p=5, 6 and 7 (the kernel's loop for any pool size, not unrolled) on
+    maps of four channels, of one and at an odd storage offset, C from 1 to
+    65, odd output widths, an input at an odd storage offset (the kernel's
+    4-byte path), maps smaller than one CTA and maps that take several
+    passes of the grid-stride loop, the whole tanh domain, avg ties, the
+    int32 extremes; and in every case the launcher's own plan equal to
+    ``launch_plan``.  Bound: bytes (each int32 input read once, each output
+    written once); the operations (a clamp and a max or add per
+    input for relu, a float division, tanhf, a multiply, a rint and two
+    clamps per input for tanh, counted as 24 float32 operations) take less.
+    No single PyTorch call computes the function: the pooling operators take
+    floating point only and no 8-bit activation, so there is no library
+    time.  Times are device times by CUDA-graph replay, every act x pool
+    kind on each map, each with its share of the bound, beside the
+    per-kernel floor (a one-element add timed the same way); on the small
+    maps also the profiler's device time of the kernel and of the add."""
+    from repro_torch.kernels.act_pool import (act_pool, act_pool_cuda, act_pool_ref, kernel_plan,
+                                              launch_plan)
     from repro_torch.kernels.act_pool.act_pool import ACTS, POOL_KINDS
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1098,6 +1109,15 @@ def check_act_pool():
     if launches != len(outs):
         raise AssertionError(f"act_pool launches {launches} != {len(outs)} calls")
     checked = []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plan_of(name, x, pool):
+        args = (x.shape, pool, x.data_ptr() % 16 == 0, n_sm)
+        plan, own = launch_plan(*args), kernel_plan(*args)
+        if plan != own:
+            raise AssertionError(f"act_pool {name} p={pool}: launch_plan {plan} != "
+                                 f"launcher's {own}")
+        return plan
 
     def hold(name, out, x, pool, act, kind):
         ref = act_pool_ref(x, pool, act, kind)
@@ -1113,16 +1133,38 @@ def check_act_pool():
     for (m, a, k), out in outs.items():
         hold(m, out, maps[m], 2, a, k)
     tanh_domain = torch.arange(-1024, 4096, device="cuda", dtype=torch.int32).reshape(1, 80, 64, 1)
+    tanh_wide = torch.arange(-2 ** 16, 2 ** 16, device="cuda",
+                             dtype=torch.int32).reshape(1, 256, 512, 1)
     extremes = rand((2, 6, 6, 8))
     extremes[0, ::2] = 2 ** 31 - 1
     extremes[1, :, ::3] = -(2 ** 31 - 1)
     extremes[0, 1, 1, 1] = -2 ** 31
+    # a contiguous tensor one int32 past a 16-byte boundary: 4-byte items
+    odd_offset = rand((2 * 8 * 8 * 8 + 1,))[1:].view(2, 8, 8, 8)
+    odd_offset_p5 = rand((2 * 10 * 15 * 8 + 1,))[1:].view(2, 10, 15, 8)
     extra = [("p3", rand((2, 12, 12, 16)), 3, variants),
              ("p4", rand((2, 16, 16, 8)), 4, variants),
+             ("p5_vec", rand((2, 10, 15, 8)), 5, variants),
+             ("p5_c1", rand((2, 10, 15, 1)), 5, variants),
+             ("p5_odd_offset", odd_offset_p5, 5, variants),
+             ("p6_vec", rand((1, 12, 18, 8)), 6, variants),
+             ("p7_vec", rand((2, 14, 21, 4)), 7, variants),
+             ("p7_c1", rand((1, 14, 21, 1)), 7, variants),
+             ("p7_c3", rand((1, 7, 14, 3)), 7, variants),
              ("c3", rand((4, 8, 8, 3)), 2, variants),
              ("c10", rand((2, 6, 6, 10)), 2, variants),
+             *[(f"c{C}_8x8", rand((2, 8, 8, C)), 2, variants) for C in (1, 2, 3, 5, 8, 12, 65)],
+             ("odd_wo_7", rand((2, 6, 14, 8)), 2, variants),
+             ("odd_wo_5_p3", rand((1, 9, 15, 4)), 3, variants),
+             ("odd_offset", odd_offset, 2, variants),
+             ("one_item_vec", rand((1, 2, 2, 4)), 2, variants),
+             ("three_items_words", rand((1, 2, 2, 3)), 2, variants),
+             ("passes_vec", rand((32, 64, 64, 64)), 2, variants),
+             ("passes_words", rand((8, 64, 64, 65)), 2, variants),
              ("tanh_domain", tanh_domain, 1, [("tanh", "max")]),
              ("tanh_domain", tanh_domain, 2, [("tanh", "avg")]),
+             ("tanh_wide", tanh_wide, 1, [("tanh", "max"), ("tanh", "avg")]),
+             ("tanh_wide", tanh_wide, 2, [("tanh", "avg")]),
              ("avg_ties", _avg_tie_windows("cuda"), 2, [("relu", "avg")]),
              ("int32_extremes", extremes, 2, variants),
              ("int32_extremes", extremes, 3, [("relu", "avg"), ("tanh", "avg")])]
@@ -1132,12 +1174,31 @@ def check_act_pool():
     ties = act_pool(_avg_tie_windows("cuda"), pool=2, pool_kind="avg")[0, 0, :, 0].cpu()
     if ties[2].item() != 0 or ties[6].item() != 2:
         raise AssertionError(f"act_pool avg ties: 0.5 -> {ties[2].item()}, 1.5 -> {ties[6].item()}")
+    plans = {name: plan_of(name, x, pool) for name, x, pool, _ in extra}
+    plans.update({m: plan_of(m, x, 2) for m, x in maps.items()})
+    expect = {"odd_offset": not plans["odd_offset"]["vec"],
+              "p5_odd_offset": not plans["p5_odd_offset"]["vec"],
+              "p5_vec": plans["p5_vec"]["vec"], "p7_c1": not plans["p7_c1"]["vec"],
+              "c8_8x8": plans["c8_8x8"]["vec"],
+              "cnn2_conv_b64": not plans["cnn2_conv_b64"]["vec"],
+              "one_item_vec": plans["one_item_vec"]["items"] == 1,
+              "three_items_words": plans["three_items_words"]["items"] == 3,
+              "passes_vec": plans["passes_vec"]["vec"] and plans["passes_vec"]["passes"] >= 2,
+              "passes_words": (not plans["passes_words"]["vec"]
+                               and plans["passes_words"]["passes"] >= 2)}
+    if not all(expect.values()):
+        raise AssertionError(f"act_pool plans: {expect} {plans}")
+    log("act_pool plans:", json.dumps(plans))
 
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    floor_runs = [graph_ms(lambda: one + 1, 50), graph_ms(lambda: one + 1, 50)]
+    floor_ms = min(floor_runs)
+    log("per-kernel floor (one-element add, cuda graph replay):",
+        json.dumps({"ms": floor_ms, "runs": floor_runs,
+                    "profiler_us": kernel_us(lambda: one + 1)}))
     lines = {}
-    timed = [(m, "relu", "max") for m in maps if m != "vgg_8x224x224x64"]
-    for m, a, k in timed + [("vgg_8x224x224x64", a, k) for a, k in variants]:
+    for m, a, k in [(m, a, k) for m in maps for a, k in variants]:
         x = maps[m]
-        B, H, W, C = x.shape
         nbytes = 4 * x.numel() + 4 * x.numel() // 4
         ops = x.numel() * (24 if a == "tanh" else 3)
         t_ops = ops / (F32_FLOPS if a == "tanh" else INT32_OPS)
@@ -1160,7 +1221,10 @@ def check_act_pool():
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops else "operations",
                 "bound_share": bound_ms / min(k1, k2),
                 "at_least_half_bound": bound_ms / min(k1, k2) >= 0.5,
-                "bytes": nbytes, "library_ms": None}
+                "floor_ms": floor_ms, "over_floor_ms": min(k1, k2) - floor_ms,
+                "bytes": nbytes, "library_ms": None, "plan": plans[m]}
+        if m != "vgg_8x224x224x64":   # the small maps: the kernel's own span
+            line["profiler_us"] = kernel_us(kernel)
         log("act_pool timing:", json.dumps(line))
         lines[line["case"]] = line
     log(f"act_pool: kernel == plain version bit for bit in {len(checked)} cases; "

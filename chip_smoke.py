@@ -10,9 +10,10 @@ Phases, each fatal on failure:
    shapes its paths give it, and time kernel, plain version and the library
    yardstick against the kernel's bound (device times by CUDA-graph
    replay for every kernel): ``paged_attn`` (split over
-   the page axis, then a combine pass) at the serving path's shapes, one
-   long slot, 64 slots that the plan does not split, and window and
-   verify cases whose plan leaves empty splits; ``act_pool`` bit for bit
+   the page axis, then a combine pass) at the serving path's shapes (decode,
+   and the speculative phase's 5-token verify tile), one long slot, 64
+   slots that the plan does not split, and window and verify cases whose
+   plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
    and a VGG-scale map in every activation and pooling kind, plus pools
    of 3 to 7 (5 to 7 run the kernel's loop for any pool size), 1 to 65
@@ -48,6 +49,14 @@ Phases, each fatal on failure:
    tight pool with a swap tier (prefix hits, copy-on-write forks, swap
    preemptions), served with horizon 1 and horizon 4, whose streams are held
    against each other the same way; then a profile of plain decode steps;
+   then n-gram speculative decoding (K = 4, horizon 4) on the same traffic,
+   whose streams must equal the spec-off run's the same way and whose
+   verify tiles launch ``paged_attention`` at Q = 5, and on repetitive
+   traffic (prompts tiled from an 8-token pattern) against a spec-off run
+   at horizon 4, with accept rates and decode tokens/s; then the asyncio
+   front door (mixed dispatch off) over 8 concurrent streams with a queue
+   overflow and a client disconnect, held against ``engine.run``, and one
+   ``POST /generate`` over the SSE server on 127.0.0.1;
 5. serve the same model in ODIN's int8 mode (8 prompts of 512 tokens, 32
    greedy tokens; decode profile; agreement with exact mode reported) and
    sc mode (2 prompts of 16 tokens, 4 greedy tokens; every forward launches
@@ -72,9 +81,9 @@ after; the kernels line gives each kernel's total and, where it has more
 than one path, the count of each.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``.  ``--phases act_pool,sc_mac,odin_linear,
-serve_sc`` (any subset) runs only those checks, for a focused call, and
-prints no kernels line.
+``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
+odin_linear,serve_sc,serve_spec,frontdoor`` (any subset) runs only those
+checks, for a focused call, and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -288,6 +297,7 @@ def library_call(c):
 
 def check_paged_attn():
     from repro_torch.kernels.paged_attn import paged_attention, paged_attn_cuda
+    from repro_torch.kernels.paged_attn.ops import launch_plan
     from repro_torch.kernels.paged_attn.ref import paged_attn_ref
 
     cases = [
@@ -305,6 +315,9 @@ def check_paged_attn():
         attn_case("long_one_slot_bf16", B=1, lengths=(1024, 1024), copies=4, seed=7),
         # 64 slots of 16 pages: the plan does not split (n_splits == 1)
         attn_case("no_split_b64_bf16", B=64, P=16, copies=4, seed=8),
+        # the speculative serving phase's verify tile: K = 4 drafts + the
+        # pending token at the serving phase's lengths (Q·G = 15 rows a head)
+        attn_case("verify_q5_serving_bf16", Q=5, lengths=(512, 576), copies=4, seed=9),
     ]
     # cases whose plan must leave CTAs with no visible key (exact empty partials)
     need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
@@ -351,7 +364,9 @@ def check_paged_attn():
             raise AssertionError(f"paged_attn {c['name']}: the plan splits {plan}")
         line = {"case": c["name"], "max_abs_err": err, "atol_rtol": TOL[ref.dtype],
                 "max_tol_excess": excess, "one_key_short_min_excess": short.min().item(),
-                "bound_ms": bound_ms, "bound_by": bound_by, "live_bytes": nbytes, **plan}
+                "bound_ms": bound_ms, "bound_by": bound_by, "live_bytes": nbytes, **plan,
+                "launch_plan": launch_plan(Q * G, D, kp.shape[1], kp.element_size(),
+                                           plan["pages_per_split"])}
         if len(c["pools"]) > 1 or c["name"] in ("window_bf16", "verify_q3_bf16"):
             packed = [(qt.contiguous(), kpi, vpi) for kpi, vpi in c["pools"]]
             i = [0]
@@ -435,60 +450,98 @@ def load_phi4():
     return cfg, params, prompts, rng
 
 
-def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True,
-          timed=False, **kw):
-    """Serve ``prompts`` (all arriving at once) greedily through the port's
-    engine on the card.  Every forward that carries a decode row or a mixed
-    tile (plain, guarded or horizon decode, mixed dispatch) must launch
-    ``paged_attention`` once per layer, and every forward of an int8/sc
-    engine runs ``odin_linear`` on each projection; the launch counts are
-    set to 0 just before the run and read just after it.  ``timed`` records
-    each dispatch's wall time (synchronised)."""
-    from repro_torch.kernels.paged_attn import paged_attention
-    from repro_torch.kernels.sc_mac import sc_mac_cuda
-    from repro_torch.serving import Request, ServingEngine
-    from repro_torch.serving import engine as engine_mod
+class counting:
+    """Counts an engine's forwards and the kernels they launch, for one run.
 
-    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16,
-                        prefill_chunk=256, params=params, **kw)
-    calls = {"forwards": 0, "prefill_forwards": 0}
-    times = {"_decode": [], "_mixed": [], "_guarded": [], "_prefill": []}
-    for attr in times:
-        fn = getattr(eng, attr)
+    Wraps the engine's step functions (prefill, plain, mixed and guarded
+    decode) and the module-level factories of its fused decode functions
+    (horizon and speculation: ``H`` forwards a call), sets every kernel's
+    launch count to 0 on entry and reads the counts on exit.
+    ``paged_attention``'s launches are also tallied by query tile length
+    (1 for decode rows, K+1 for a speculative verify tile) through a
+    pass-through of the kernel wrapper; its own count is the one reported.
+    ``timed`` records each wrapped dispatch's wall time (synchronised)."""
 
-        def counted(*a, _fn=fn, _attr=attr, **k):
-            calls["prefill_forwards" if _attr == "_prefill" else "forwards"] += 1
-            if timed:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-            out = _fn(*a, **k)
-            if timed:
-                torch.cuda.synchronize()
-                times[_attr].append(time.perf_counter() - t)
-            return out
-        setattr(eng, attr, counted)
-    make_horizon = engine_mod.make_serving_decode_horizon
+    def __init__(self, eng, timed=False):
+        self.eng, self.timed = eng, timed
+        self.forwards = self.prefill_forwards = 0
+        self.times = {"_decode": [], "_mixed": [], "_guarded": [], "_prefill": []}
+        self.by_q = {}
 
-    def counted_horizon(cfg_, H, **k):
-        fn = make_horizon(cfg_, H, **k)
+    def __enter__(self):
+        from repro_torch.kernels.paged_attn import ops as paged_ops
+        from repro_torch.kernels.paged_attn import paged_attention
+        from repro_torch.kernels.sc_mac import sc_mac_cuda
+        from repro_torch.serving import engine as engine_mod
+        for attr in self.times:
+            fn = getattr(self.eng, attr)
 
-        def step(*a, **kk):
-            calls["forwards"] += H
-            return fn(*a, **kk)
-        return step
-    reqs = [Request(rid=i, prompt=pr, max_new=max_new) for i, pr in enumerate(prompts)]
-    torch.cuda.reset_peak_memory_stats()
-    engine_mod.make_serving_decode_horizon = counted_horizon
-    paged_attention.launches = 0
-    sc_mac_cuda.launches = 0
-    try:
-        t = time.perf_counter()
-        summary = eng.run(reqs)
+            def counted(*a, _fn=fn, _attr=attr, **k):
+                if _attr == "_prefill":
+                    self.prefill_forwards += 1
+                    # a one-token chunk (the tail behind a shared prefix)
+                    # takes the decode kernel: (params, caches, tokens, ...)
+                    self.forwards += a[2].shape[-1] == 1
+                else:
+                    self.forwards += 1
+                if self.timed:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                out = _fn(*a, **k)
+                if self.timed:
+                    torch.cuda.synchronize()
+                    self.times[_attr].append(time.perf_counter() - t)
+                return out
+            setattr(self.eng, attr, counted)
+        self._factories = {name: getattr(engine_mod, name) for name in
+                           ("make_serving_decode_horizon", "make_serving_spec_horizon")}
+        for name, make in self._factories.items():
+            def counted_make(cfg_, H, *a, _make=make, **k):
+                fn = _make(cfg_, H, *a, **k)
+
+                def step(*aa, **kk):
+                    self.forwards += H
+                    return fn(*aa, **kk)
+                return step
+            setattr(engine_mod, name, counted_make)
+        self._kernel = paged_ops.paged_attn_cuda
+
+        def tally(*a, _kernel=self._kernel, **k):
+            q = k.get("q_len", 1)
+            self.by_q[q] = self.by_q.get(q, 0) + 1
+            return _kernel(*a, **k)
+        paged_ops.paged_attn_cuda = tally
+        paged_attention.launches = 0
+        sc_mac_cuda.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.paged_attn import ops as paged_ops
+        from repro_torch.kernels.paged_attn import paged_attention
+        from repro_torch.kernels.sc_mac import sc_mac_cuda
+        from repro_torch.serving import engine as engine_mod
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches, sc_launches = paged_attention.launches, sc_mac_cuda.launches
-    finally:
-        engine_mod.make_serving_decode_horizon = make_horizon
+        self.launches, self.sc_launches = paged_attention.launches, sc_mac_cuda.launches
+        paged_ops.paged_attn_cuda = self._kernel
+        for name, make in self._factories.items():
+            setattr(engine_mod, name, make)
+        return False
+
+    def check(self, cfg):
+        """Every forward that carried a decode row, a mixed tile, a verify
+        tile or a one-token prefill chunk launched ``paged_attention`` once
+        per layer."""
+        if self.launches <= 0 or self.launches != cfg.n_layers * self.forwards:
+            raise AssertionError(f"paged_attention launches {self.launches} != "
+                                 f"{cfg.n_layers} x {self.forwards} forwards")
+        if sum(self.by_q.values()) != self.launches:
+            raise AssertionError(f"launches by query length {self.by_q} do not add up "
+                                 f"to {self.launches}")
+
+
+def check_streams(reqs, max_new, vocab, all_done=True):
+    """Greedy streams of finished requests: terminal, in the vocabulary, and
+    of ``max_new`` tokens each when ``all_done``.  Returns {rid: tokens}."""
     streams = {r.rid: [int(np.ravel(x)[0]) for x in r.generated] for r in reqs}
     for r in reqs:
         if all_done and (r.state.name != "DONE" or len(streams[r.rid]) != max_new):
@@ -496,30 +549,49 @@ def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True
                                  f"{len(streams[r.rid])}/{max_new} tokens")
         if not r.terminal:
             raise AssertionError(f"request {r.rid} did not reach a terminal state")
-        if not all(0 <= x < cfg.vocab for x in streams[r.rid]):
+        if not all(0 <= x < vocab for x in streams[r.rid]):
             raise AssertionError(f"request {r.rid}: token out of range")
-    if launches <= 0 or launches != cfg.n_layers * calls["forwards"]:
-        raise AssertionError(f"paged_attention launches {launches} != "
-                             f"{cfg.n_layers} x {calls['forwards']} forwards")
-    return dict(summary=summary, streams=streams, launches=launches,
-                sc_launches=sc_launches, forwards=calls["forwards"],
-                prefill_forwards=calls["prefill_forwards"], wall=wall,
-                peak=torch.cuda.max_memory_allocated(), requests=reqs, times=times)
+    return streams
+
+
+def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True,
+          timed=False, **kw):
+    """Serve ``prompts`` (all arriving at once) greedily through the port's
+    engine on the card.  Every forward that carries a decode row, a mixed
+    tile or a verify tile (plain, guarded, horizon or speculative decode,
+    mixed dispatch) must launch ``paged_attention`` once per layer, and
+    every forward of an int8/sc engine runs ``odin_linear`` on each
+    projection; the launch counts are set to 0 just before the run and read
+    just after it (:class:`counting`)."""
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16,
+                        prefill_chunk=256, params=params, **kw)
+    reqs = [Request(rid=i, prompt=pr, max_new=max_new) for i, pr in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    with counting(eng, timed) as c:
+        t = time.perf_counter()
+        summary = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    streams = check_streams(reqs, max_new, cfg.vocab, all_done)
+    c.check(cfg)
+    return dict(summary=summary, streams=streams, launches=c.launches,
+                launches_by_q=c.by_q, sc_launches=c.sc_launches, forwards=c.forwards,
+                prefill_forwards=c.prefill_forwards, wall=wall,
+                peak=torch.cuda.max_memory_allocated(), requests=reqs, times=c.times)
 
 
 def serve_full_width(cfg, params, prompts, rng):
     """Exact-mode serving at full width: the smoke traffic with mixed
     dispatch on and off, pool pressure at horizon 1 and 4, a decode profile.
-    Returns each run's ``paged_attention`` launches and the mixed run's
-    streams."""
+    Returns each run's ``paged_attention`` launches, and the mixed run's
+    streams and decode tokens/s."""
     def run(prompts, max_new, **kw):
         return serve(cfg, params, prompts, max_new, **kw)
 
     def compare(base, other, prompts, what):
-        n_equal = sum(base[rid] == other[rid] for rid in base)
-        log(f"{what}: {n_equal}/{len(base)} streams equal")
-        for rid in base:
-            check_divergence(params, cfg, prompts[rid], base[rid], other[rid], rid)
+        compare_streams(params, cfg, prompts, base, other, what)
 
     a = run(prompts, 64)
     s1 = a["summary"]
@@ -574,7 +646,7 @@ def serve_full_width(cfg, params, prompts, rng):
     launches = {"serve_exact": a["launches"], "serve_exact_unmixed": b["launches"],
                 "serve_pressure_h1": runs[1]["launches"],
                 "serve_pressure_h4": runs[4]["launches"]}
-    return launches, a["streams"]
+    return launches, a["streams"], s1["decode_tokens_per_s"]
 
 
 # bf16 logits of magnitude 4-8 carry 2^-5 steps; 0.125 is four of them.  The
@@ -584,7 +656,17 @@ def serve_full_width(cfg, params, prompts, rng):
 LOGIT_TIE_TOL = 0.125
 
 
-def check_divergence(params, cfg, prompt, a, b, rid):
+def compare_streams(params, cfg, prompts, base, other, what):
+    """Log how many of two runs' streams are equal and hold every parting to
+    a near tie (:func:`check_divergence`).  Returns the count of equal ones."""
+    n_equal = sum(base[rid] == other[rid] for rid in base)
+    log(f"{what}: {n_equal}/{len(base)} streams equal")
+    for rid in base:
+        check_divergence(params, cfg, prompts[rid], base[rid], other[rid], rid, what)
+    return n_equal
+
+
+def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
     """Two greedy streams of one request may part only at a near tie: at the
     first differing step both tokens must be the reference forward's top two,
     with logits within LOGIT_TIE_TOL.  Each such step is reported."""
@@ -598,13 +680,13 @@ def check_divergence(params, cfg, prompt, a, b, rid):
         logits = lm.forward(params, ctx, cfg)[0][0, -1].float()
     top = torch.topk(logits, 2)
     gap = abs(logits[a[t]].item() - logits[b[t]].item())
-    report = {"rid": rid, "step": t, "mixed_token": a[t], "unmixed_token": b[t],
+    report = {"streams": what, "rid": rid, "step": t, "token_a": a[t], "token_b": b[t],
               "reference_top2": top.indices.tolist(),
               "reference_top2_gap": (top.values[0] - top.values[1]).item(),
               "gap_between_tokens": gap, "tol": LOGIT_TIE_TOL}
     log("stream divergence at a near tie:", json.dumps(report))
     if set(top.indices.tolist()) != {a[t], b[t]} or gap > LOGIT_TIE_TOL:
-        raise AssertionError(f"request {rid}: mixed on/off streams part at step {t} "
+        raise AssertionError(f"request {rid}: {what} streams part at step {t} "
                              f"without a near tie: {report}")
 
 
@@ -679,6 +761,225 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
         "top_device_ms_per_step": {e.key[:60]: dev_us(e) / (block * 1e3) for e in top}}
     log(f"{label}:", json.dumps(report))
     return report
+
+
+# ---------------------------------------------------------------------------
+# phases 4b-4c: speculative decoding and the front door
+# ---------------------------------------------------------------------------
+
+SPEC_K, SPEC_H = 4, 4            # draft length and horizon of the spec phase
+
+
+def serve_spec(cfg, params, prompts, exact_streams, exact_tps):
+    """n-gram self-speculative decoding at full width (K = 4 drafts a step,
+    up to 4 steps a dispatch): every inner step is one forward over a
+    5-token verify tile, which reaches ``paged_attention`` at Q = 5.  The
+    serving phase's 8 prompts of 512 tokens with 64 greedy tokens, whose
+    streams must equal the spec-off run's (``exact_streams``, mixed
+    dispatch at horizon 1, ``exact_tps`` decode tokens/s) except at reported
+    near ties; then 8 prompts of
+    512 tokens tiled from a random 8-token pattern each (the ``repetitive``
+    scenario's traffic at the serving phase's lengths), 64 tokens, served
+    with speculation off and on at horizon 4 and held against each other.
+    Returns each run's ``paged_attention`` launches, and its launches by
+    query length."""
+    rng = np.random.default_rng(17)
+    on = serve(cfg, params, prompts, 64, spec_ngram=SPEC_K, horizon=SPEC_H)
+    pats = rng.integers(0, cfg.vocab, size=(len(prompts), 8), dtype=np.int32)
+    rep = [np.tile(p, 64) for p in pats]
+    rep_off = serve(cfg, params, rep, 64, horizon=SPEC_H)
+    rep_on = serve(cfg, params, rep, 64, spec_ngram=SPEC_K, horizon=SPEC_H)
+    lines = {}
+    for what, r, base, prm in (("serving traffic", on, exact_streams, prompts),
+                               ("repetitive traffic", rep_on, rep_off["streams"], rep)):
+        if r["launches_by_q"].get(SPEC_K + 1, 0) <= 0:
+            raise AssertionError(f"spec run on {what}: no paged_attention launch at "
+                                 f"Q = {SPEC_K + 1}: {r['launches_by_q']}")
+        n_equal = compare_streams(params, cfg, prm, base, r["streams"],
+                                  f"spec off/on, {what}")
+        s = r["summary"]
+        if s["speculation"]["drafted"] <= 0:
+            raise AssertionError(f"spec run on {what} drafted nothing: {s['speculation']}")
+        lines[what] = {
+            "traffic": what, "requests": len(prm), "prompt": 512, "generated": 64,
+            "spec_k": SPEC_K, "horizon": SPEC_H, "wall_s": r["wall"],
+            "streams_equal_to_spec_off": n_equal, "speculation": s["speculation"],
+            "tokens_per_dispatch": s["tokens_per_dispatch"],
+            "decode_dispatches": s["decode_dispatches"], "decode_steps": s["decode_steps"],
+            "decode_tokens_per_s": s["decode_tokens_per_s"],
+            "forwards_through_kernel": r["forwards"], "paged_attn_launches": r["launches"],
+            "paged_attn_launches_by_q": r["launches_by_q"],
+            "peak_memory_gb": r["peak"] / 1e9}
+    lines["serving traffic"]["spec_off_h1_decode_tokens_per_s"] = exact_tps
+    off = rep_off["summary"]
+    lines["repetitive traffic"].update(
+        spec_off_decode_tokens_per_s=off["decode_tokens_per_s"],
+        spec_off_tokens_per_dispatch=off["tokens_per_dispatch"],
+        spec_off_decode_dispatches=off["decode_dispatches"],
+        spec_off_wall_s=rep_off["wall"], spec_off_paged_attn_launches=rep_off["launches"])
+    for line in lines.values():
+        log("speculative serving:", json.dumps(line))
+    launches = {"serve_spec": on["launches"], "serve_spec_repetitive": rep_on["launches"],
+                "serve_repetitive_h4": rep_off["launches"]}
+    by_q = {}
+    for r in (on, rep_on):
+        for q, n in r["launches_by_q"].items():
+            by_q[q] = by_q.get(q, 0) + n
+    return launches, by_q
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def _post_generate(port, body, timeout=600):
+    """One ``POST /generate`` on 127.0.0.1; returns (status line, the SSE
+    events' JSON payloads)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode()
+    writer.write(b"POST /generate HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), timeout)
+    writer.close()
+    await writer.wait_closed()
+    head, _, rest = raw.decode().partition("\r\n\r\n")
+    return head.splitlines()[0], [json.loads(x[len("data: "):]) for x in rest.split("\n")
+                                  if x.startswith("data: ")]
+
+
+def frontdoor(cfg, params, prompts):
+    """The asyncio front door over the port's engine at full width, mixed
+    dispatch off so that every dispatch has one shape whatever the arrival
+    order.  The serving phase's 8 prompts of 512 tokens, 32 greedy tokens
+    each, submitted in one event loop; a ninth submission overflows the
+    queue (``Overloaded`` with a retry-after); one consumer disconnects
+    after 8 tokens (its request cancelled, its blocks freed).  Every other
+    stream must equal ``engine.run``'s on the same requests, and the
+    cancelled one a prefix of its own, except at reported near ties.  Then
+    one ``POST /generate`` over ``run_server`` on 127.0.0.1 and an ephemeral
+    port: its SSE token events must equal the in-process stream of the same
+    prompt.  Returns the ``paged_attention`` launches of the reference run
+    and of the front door's."""
+    import asyncio
+
+    from repro_torch.serving import (FrontDoor, Overloaded, Request, RequestState,
+                                     ServingEngine, run_server)
+    max_new, cancel_rid, cancel_after = 32, 3, 8
+
+    def engine():
+        return ServingEngine(cfg, slots=len(prompts), max_len=1024, block_size=16,
+                             prefill_chunk=256, params=params, mixed=False)
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
+
+    ref_eng, ref_reqs = engine(), requests()
+    with counting(ref_eng) as c0:
+        ref_eng.run(ref_reqs)
+    c0.check(cfg)
+    ref = check_streams(ref_reqs, max_new, cfg.vocab)
+
+    eng, reqs = engine(), requests()
+    extra = Request(rid=len(prompts), prompt=prompts[0], max_new=max_new)
+
+    async def burst():
+        fd = FrontDoor(eng, max_queue=len(reqs))
+        await fd.start()
+        streams = [fd.submit(r) for r in reqs]
+        overflow = None
+        try:
+            fd.submit(extra)
+        except Overloaded as e:
+            overflow = e
+
+        async def consume(r, stream):
+            toks, done = [], None
+            async for ev in stream:
+                if ev.kind == "token":
+                    toks.append(ev.token[0])
+                    if r.rid == cancel_rid and len(toks) >= cancel_after:
+                        break
+                elif ev.kind == "done":
+                    done = ev
+            await stream.aclose()          # the disconnect: cancels the request
+            return toks, done
+
+        outs = await asyncio.gather(*[consume(r, st) for r, st in zip(reqs, streams)])
+        summ = fd.summary()
+        await fd.aclose()
+        return outs, overflow, summ
+
+    async def http():
+        fd = FrontDoor(eng, max_queue=len(reqs))
+        ready, port = asyncio.Event(), _free_port()
+        server = asyncio.ensure_future(run_server(fd, "127.0.0.1", port, vocab=cfg.vocab,
+                                                  install_signals=False, ready=ready))
+        await asyncio.wait_for(ready.wait(), 60)
+        try:
+            return await _post_generate(port, {"prompt": prompts[0].tolist(),
+                                               "max_new": max_new})
+        finally:
+            server.cancel()
+            try:
+                await server
+            except asyncio.CancelledError:
+                pass
+
+    with counting(eng) as c:
+        t = time.perf_counter()
+        outs, overflow, summ = asyncio.run(burst())
+        wall = time.perf_counter() - t
+        t = time.perf_counter()
+        status, events = asyncio.run(http())
+        http_wall = time.perf_counter() - t
+    c.check(cfg)
+    if overflow is None or overflow.retry_after is None or overflow.retry_after < 0:
+        raise AssertionError(f"front door: the ninth submission was not rejected with "
+                             f"a retry-after ({overflow!r})")
+    if summ["rejected_queue"] != 1 or summ["disconnect_cancels"] != 1 \
+            or summ["accepted"] != len(reqs) or summ["live_streams"] != 0:
+        raise AssertionError(f"front door summary {summ}")
+    got = {}
+    for r, (toks, done) in zip(reqs, outs):
+        if r.rid == cancel_rid:
+            if r.state is not RequestState.CANCELLED or r.finish_reason != "disconnect" \
+                    or len(toks) != cancel_after:
+                raise AssertionError(f"rid {r.rid}: {r.state} {r.finish_reason} after "
+                                     f"{len(toks)} tokens")
+        elif (done is None or done.state != "done" or done.n_tokens != len(toks)
+              or len(toks) != max_new):
+            raise AssertionError(f"rid {r.rid}: stream ended {done} with {len(toks)} tokens")
+        got[r.rid] = toks
+    n_equal = compare_streams(params, cfg, prompts,
+                              {rid: ref[rid][:len(s)] for rid, s in got.items()}, got,
+                              "engine.run vs front door")
+    cache = eng.sched.prefix_cache
+    held = len(cache.held_blocks()) if cache is not None else 0
+    if eng.pool.used_blocks != held or len(eng.sched.free_slots) != eng.slots:
+        raise AssertionError(f"front door leaked: {eng.pool.used_blocks} blocks used "
+                             f"({held} held by the prefix cache), "
+                             f"{len(eng.sched.free_slots)}/{eng.slots} slots free")
+    sse = [e["token"][0] for e in events if e["kind"] == "token"]
+    if status != "HTTP/1.1 200 OK" or events[-1]["kind"] != "done" \
+            or events[-1]["state"] != "done" or len(sse) != max_new:
+        raise AssertionError(f"POST /generate: {status}, last event {events[-1:]}, "
+                             f"{len(sse)} tokens")
+    check_divergence(params, cfg, prompts[0], got[0], sse, 0, "in-process vs SSE")
+    line = {"requests": len(reqs), "prompt": 512, "generated": max_new, "mixed": False,
+            "wall_s": wall, "streams_equal_to_engine_run": n_equal,
+            "cancelled_rid": cancel_rid, "cancelled_after_tokens": cancel_after,
+            "overflow_retry_after_s": overflow.retry_after, "front_door": summ,
+            "sse_status": status, "sse_events": len(events), "sse_wall_s": http_wall,
+            "sse_equals_in_process": sse == got[0],
+            "forwards_through_kernel": c.forwards, "paged_attn_launches": c.launches,
+            "engine_run_paged_attn_launches": c0.launches}
+    log("front door:", json.dumps(line))
+    return {"frontdoor_engine_run": c0.launches, "frontdoor": c.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1429,7 +1730,8 @@ def guarded_faults(cfg, params, rng):
             if len(stream) >= len(ref):
                 raise AssertionError(f"quarantined rid {rid} kept all {len(stream)} tokens")
             ref = ref[:len(stream)]
-        check_divergence(params, cfg, prompts[rid], ref, stream, rid)
+        check_divergence(params, cfg, prompts[rid], ref, stream, rid,
+                         "fault-free vs guarded")
     n_equal = sum(hit["streams"][rid] == base["streams"][rid]
                   for rid in base["streams"] if rid != bad)
     line = {"plan": "nan_logits", "quarantined_rid": bad,
@@ -1461,21 +1763,32 @@ def guarded_faults(cfg, params, rng):
 
 
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
-PICKABLE = ("act_pool", "sc_mac", "odin_linear", "serve_sc")
+PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
+            "frontdoor")
 
 
 def run_picked(picked, name, smi):
     """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
-    checked row counts it needs); no kernels line."""
+    checked row counts it needs; ``serve_spec`` the spec-off run of the
+    serving traffic it is held against); no kernels line."""
+    if "paged_attn" in picked:
+        check_paged_attn()
     if "act_pool" in picked:
         check_act_pool()
     if "sc_mac" in picked:
         check_sc_mac()
     if "odin_linear" in picked or "serve_sc" in picked:
         _, rows = check_odin_linear_full_width()
-    if "serve_sc" in picked:
+    if picked & {"serve_sc", "serve_spec", "frontdoor"}:
         cfg, params, prompts, _ = load_phi4()
+    if "serve_sc" in picked:
         serve_odin_sc(cfg, params, prompts, rows)
+    if "serve_spec" in picked:
+        base = serve(cfg, params, prompts, 64)
+        serve_spec(cfg, params, prompts, base["streams"],
+                   base["summary"]["decode_tokens_per_s"])
+    if "frontdoor" in picked:
+        frontdoor(cfg, params, prompts)
     log(smi)
     log(json.dumps({"ok": True, "phases": sorted(picked),
                     "device": {"platform": "gpu", "kind": name,
@@ -1528,7 +1841,10 @@ def main(argv=None):
     check_rail_dot()
     small_model_card_vs_cpu()
     cfg, params, prompts, rng = load_phi4()
-    paged_launches, exact_streams = serve_full_width(cfg, params, prompts, rng)
+    paged_launches, exact_streams, exact_tps = serve_full_width(cfg, params, prompts, rng)
+    spec_launches, spec_by_q = serve_spec(cfg, params, prompts, exact_streams, exact_tps)
+    paged_launches.update(spec_launches)
+    paged_launches.update(frontdoor(cfg, params, prompts))
     odin = serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked)
     paged_launches.update(serve_int8=odin["int8"]["launches"], serve_sc=odin["sc"]["launches"])
     paged_launches.update(guarded_faults(cfg, params, rng))
@@ -1550,8 +1866,10 @@ def main(argv=None):
         "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
         "library_ms": report["library_ms"], "n_splits": report["n_splits"],
         "kernels_per_call": report["kernels_per_call"],
-        "timed_cases": {k: {x: v.get(x) for x in ("ms", "bound_ms", "library_ms", "n_splits")}
+        "timed_cases": {k: {x: v.get(x) for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "n_splits", "launch_plan")}
                         for k, v in attn_lines.items() if "ms" in v},
+        "launches_by_query_len_spec_paths": spec_by_q,
     }, {
         "name": "sc_mac", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",

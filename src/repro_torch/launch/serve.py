@@ -9,9 +9,15 @@ Usage:
   # ODIN's stochastic-computing mode on every projection of the LM:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \\
       --odin-mode sc
+  # n-gram self-speculative decode on repetition-heavy traffic:
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \\
+      --scenario repetitive --requests 4 --spec-ngram 4 --horizon 4
+  # the engine as a streaming HTTP front door (SSE, 429 on overload):
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \\
+      --listen --port 8080 --max-queue 32 --tenant-rate 50
 
-The static loop (``--static``), the HTTP front door (``--listen``) and
-speculation (``--spec-ngram``) are not ported yet and exit with an error.
+The static loop (``--static``) runs on the dense KV cache, which is not
+ported yet, and exits with an error.
 """
 from __future__ import annotations
 
@@ -25,9 +31,7 @@ from repro_torch.models import registry
 from repro_torch.serving import (SCENARIOS, FaultPlan, ReliabilityConfig,
                                  Request, ServingEngine, Tracer, make_requests)
 
-__all__ = ["serve", "main"]
-
-_NOT_PORTED = ("static", "listen", "spec_ngram")
+__all__ = ["serve", "serve_listen", "main"]
 
 
 def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
@@ -63,6 +67,46 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     return generated, tps
 
 
+def serve_listen(cfg, *, host: str = "127.0.0.1", port: int = 8080,
+                 slots: int = 4, max_len: int = 128, block_size: int = 16,
+                 max_queue: int = 64, tenant_rate: float | None = None,
+                 tenant_burst: float | None = None,
+                 heartbeat_s: float | None = None, params=None,
+                 verbose: bool = True, **engine_kwargs):
+    """Expose the engine as a streaming HTTP front door.
+
+    ``POST /generate`` with ``{"prompt": [ids]}`` (or ``{"prompt_len": n}``
+    for a random prompt) streams token/heartbeat/done events as SSE; an
+    overloaded queue or an over-quota tenant gets ``429`` + ``Retry-After``,
+    submissions during shutdown get ``503``.  SIGTERM/SIGINT drain
+    gracefully: in-flight streams flush, then the engine summary prints.
+    Blocks until shutdown; returns the final summary.
+    """
+    import asyncio
+
+    from repro_torch.serving.frontdoor import FrontDoor, run_server
+
+    engine = ServingEngine(cfg, slots=slots, max_len=max_len,
+                           block_size=block_size, params=params,
+                           **engine_kwargs)
+    fd = FrontDoor(engine, max_queue=max_queue, tenant_rate=tenant_rate,
+                   tenant_burst=tenant_burst, heartbeat_s=heartbeat_s)
+    if verbose:
+        print(f"[serve] front door on http://{host}:{port}/generate  "
+              f"(slots={slots}, max_len={max_len}, queue≤{max_queue}"
+              + (f", tenant quota {tenant_rate}/s" if tenant_rate else "")
+              + f", {engine.device})  SIGTERM drains gracefully")
+    try:
+        asyncio.run(run_server(fd, host, port, vocab=cfg.vocab))
+    except KeyboardInterrupt:
+        pass
+    summary = engine.summary()
+    if verbose:
+        print(f"[serve] drained: terminal {summary['terminal']}, "
+              f"front door {fd.summary()}")
+    return summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -86,6 +130,10 @@ def main(argv=None):
                          "(default: prefill chunk + slots)")
     ap.add_argument("--horizon", type=int, default=1,
                     help="max decode steps fused into one dispatch")
+    ap.add_argument("--spec-ngram", type=int, default=0, metavar="K",
+                    help="n-gram self-speculative decode: draft K tokens per "
+                         "inner step by prompt-lookup and verify them in one "
+                         "multi-token forward (greedy only; 0 = off)")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax)")
@@ -117,14 +165,33 @@ def main(argv=None):
     ap.add_argument("--fault-plan", default=None, metavar="PATH",
                     help="seeded fault-injection plan (JSON, see repro_torch."
                          "serving.faults.FaultPlan); scenario mode only")
-    # options of the JAX package's serve CLI whose paths are not ported yet
+    # streaming front-door mode (ignores --batch/--scenario; clients bring
+    # their own prompts over HTTP)
+    ap.add_argument("--listen", action="store_true",
+                    help="serve POST /generate as an SSE token stream through "
+                         "the asyncio front door (429 + Retry-After on "
+                         "overload, 503 while draining, SIGTERM drains)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="waiting-queue bound before typed 429 rejection")
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="per-request prompt+gen cap for --listen "
+                         "(default: --prompt-len + --gen)")
+    ap.add_argument("--tenant-rate", type=float, default=None,
+                    help="per-tenant emitted-token quota (tokens/s; off by "
+                         "default)")
+    ap.add_argument("--tenant-burst", type=float, default=None,
+                    help="per-tenant bucket burst (default: --tenant-rate)")
+    ap.add_argument("--heartbeat-ms", type=float, default=None,
+                    help="idle-stream heartbeat period")
+    # the JAX package's static loop runs on the dense KV cache, not ported yet
     ap.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--listen", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--spec-ngram", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not yet ported (see ROADMAP.md)")
+    if args.static:
+        ap.error("--static is not yet ported: the static loop needs the dense "
+                 "KV cache (see ROADMAP.md §1, the dense KV cache and the "
+                 "other cache families)")
     if args.fault_plan and not args.scenario:
         ap.error("--fault-plan requires --scenario (fault injection is bench/"
                  "test-mode only)")
@@ -146,7 +213,8 @@ def main(argv=None):
         prefill_chunk=args.chunk,
         prefix_sharing=False if args.no_prefix_sharing else None,
         mixed=False if args.no_mixed else None, mixed_budget=args.mixed_budget,
-        horizon=args.horizon, eos_id=args.eos_id, temperature=args.temperature,
+        horizon=args.horizon, spec_ngram=args.spec_ngram, eos_id=args.eos_id,
+        temperature=args.temperature,
         top_k=args.top_k, sample_seed=args.sample_seed, tracer=tracer,
         metrics_window=args.metrics_window, reliability=reliability,
         deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms is not None else None),
@@ -154,7 +222,18 @@ def main(argv=None):
                          if args.queue_timeout_ms is not None else None),
         degrade=args.degrade)
 
-    if args.scenario:
+    if args.listen:
+        block_size = args.block_size or 16
+        max_len = args.max_len or (args.prompt_len + args.gen)
+        max_len = -(-max_len // block_size) * block_size
+        serve_listen(
+            cfg, host=args.host, port=args.port, slots=args.slots or 4,
+            max_len=max_len, block_size=block_size, max_queue=args.max_queue,
+            tenant_rate=args.tenant_rate, tenant_burst=args.tenant_burst,
+            heartbeat_s=(args.heartbeat_ms / 1e3
+                         if args.heartbeat_ms is not None else None),
+            seed=args.seed, **engine_kw)
+    elif args.scenario:
         if args.fault_plan:
             with open(args.fault_plan) as fh:
                 engine_kw["fault_plan"] = FaultPlan.from_json(fh.read())

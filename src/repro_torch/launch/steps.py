@@ -2,10 +2,10 @@
 
 The serving subset of the JAX package's ``launch/steps.py``: slot prefill,
 activity-masked decode, the guarded decode with its NaN verdict, the fused
-mixed prefill+decode tile and the decode horizon.  Each ``make_*`` returns
-a plain function that runs eagerly on the caches' device; the horizon's
-``lax.scan`` is a Python loop whose carry stays on the device (one host
-sync per horizon, taken by the engine).
+mixed prefill+decode tile, the decode horizon and n-gram self-speculative
+decode.  Each ``make_*`` returns a plain function that runs eagerly on the
+caches' device; the horizons' ``lax.scan`` is a Python loop whose carry
+stays on the device (one host sync per horizon, taken by the engine).
 
 Pool leaves are updated in place; ``pos`` leaves are recomputed and merged
 with the activity mask, as the JAX steps merge their functional caches.
@@ -31,6 +31,9 @@ __all__ = [
     "make_serving_decode_guarded",
     "make_serving_mixed_step",
     "make_serving_decode_horizon",
+    "speculable",
+    "ngram_propose",
+    "make_serving_spec_horizon",
 ]
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -276,3 +279,128 @@ def make_serving_decode_horizon(cfg: ModelConfig, H: int, top_k: int = 0) -> Cal
         return block, counts, tok, caches
 
     return horizon_step
+
+
+# ---------------------------------------------------------------------------
+# n-gram self-speculative decode (draft-free prompt-lookup verification)
+# ---------------------------------------------------------------------------
+
+def speculable(cfg: ModelConfig) -> bool:
+    """Whether the config supports n-gram self-speculative serving decode.
+
+    Rollback of rejected draft rows is a length decrement, sound exactly when
+    every piece of decode state is position-addressed (paged pool blocks:
+    stale rows past the length are invisible to every later query).
+    Recurrent state advances per token and cannot be truncated, and
+    multi-codebook frames have no scalar n-gram to match."""
+    return cfg.n_codebooks == 1 and all(
+        b.kind in ("dense", "moe") and b.attn is not None for b in cfg.blocks)
+
+
+def ngram_propose(hist, K: int, n: int = 2):
+    """Draft ``K`` tokens per slot by prompt-lookup over the token history.
+
+    ``hist [B, W]`` holds each slot's most recent context tokens
+    right-aligned (prompt tail + generated ids, ``-1`` padding on the left).
+    The final ``n``-gram is matched against every earlier offset in one
+    vectorised comparison on the device; the draft is the ``K`` tokens that
+    followed the most recent match.  No match degenerates to repeating the
+    last token, which the verify step simply rejects."""
+    B, W = hist.shape
+    J = W - n - K + 1               # candidate starts; excludes the tail itself
+    if J < 1:
+        raise ValueError(f"history window {W} too short for n={n}, K={K}")
+    tail = hist[:, W - n:]
+    m = torch.ones((B, J), dtype=torch.bool, device=hist.device)
+    for i in range(n):
+        m = m & (hist[:, i:i + J] == tail[:, i:i + 1])
+    starts = torch.arange(J, dtype=torch.int32, device=hist.device)
+    best = torch.where(m, starts, -1).amax(dim=1)
+    has = best >= 0
+    cols = (best.clamp_min(0)[:, None] + n
+            + torch.arange(K, dtype=torch.int32, device=hist.device))
+    draft = torch.gather(hist, 1, cols.long())                    # [B, K]
+    draft = torch.where(has[:, None], draft, hist[:, -1:])
+    return draft.clamp_min(0)       # padding can leak into a boundary draft
+
+
+def _spec_merge(old_caches, new_caches, active, m):
+    """Merge a K+1-token verify forward's cache updates with per-slot
+    rollback: ``pos`` leaves advance by the per-slot accepted count ``m``
+    (rows past ``pos + m`` hold rejected-draft K/V and stay invisible),
+    pool leaves keep their in-place writes (inactive slots wrote to the
+    write-off block), other per-slot leaves select by the activity mask."""
+    def merge(name, old, new):
+        if name in POOL_LEAVES:
+            return new
+        if name == "pos":
+            return old + m[None, :]                     # [L, B] + [1, B]
+        mask = active.reshape((1, active.shape[0]) + (1,) * (old.ndim - 2))
+        return torch.where(mask, new, old)
+
+    return map_with_name(merge, old_caches, new_caches)
+
+
+def make_serving_spec_horizon(cfg: ModelConfig, H: int, K: int,
+                              n: int = 2) -> Callable:
+    """``H`` draft→verify→accept steps in ONE dispatch, the carry kept on
+    the device.
+
+    (params, caches, tokens [B,1], lengths [B], active [B], remaining [B],
+     hist [B,W], tables [B,P], eos_id)
+        → (token_block [B, H, K+1], counts [B, H], last_tokens [B, 1],
+           hist, caches)
+
+    Each inner step drafts ``K`` tokens with :func:`ngram_propose`, runs ONE
+    forward over ``[pending, d_1..d_K]`` (the paged kernel's ``K+1``-token
+    verify tile), accepts the longest draft prefix equal to the greedy
+    argmaxes plus the bonus argmax (``1..K+1`` tokens, every one an argmax,
+    so the stream equals plain greedy decode), advances lengths by that
+    count only (clamped by ``remaining`` and a mid-tile EOS: rollback is a
+    length decrement, never a copy) and shifts the emitted run into the
+    history ring.  ``counts[s, h]`` is the number of valid tokens in
+    ``token_block[s, h]`` (0 once the slot froze).  Greedy only.
+    """
+    if K < 1:
+        raise ValueError(f"spec draft length K must be >= 1, got {K}")
+
+    def spec_step(params, caches, tokens, lengths, active, remaining, hist,
+                  tables, eos_id: int = -1):
+        W = hist.shape[1]
+        trash = _pool_trash_block(caches)
+        rows = torch.arange(W, dtype=torch.int32, device=hist.device)[None, :]
+        toks, counts = [], []
+        tok, act, rem = tokens, active, remaining
+        for _ in range(H):
+            draft = ngram_propose(hist, K, n)                       # [B, K]
+            tabs = torch.where(act[:, None], tables, trash)
+            tin = torch.cat([tok, draft], dim=1)                    # [B, K+1]
+            logits, new_caches, _ = lm.forward(
+                params, tin, cfg, caches=caches, start_pos=lengths[:, None],
+                tables=tabs, spec_decode=True)
+            g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, K+1]
+            # d_j is accepted while it equals the argmax one position earlier
+            match = (draft == g[:, :K]).to(torch.int32)
+            acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+            is_eos = (g == eos_id) & (eos_id >= 0)
+            has_eos = is_eos.any(dim=1)
+            # argmax takes no bool; it returns the first maximum
+            first = torch.argmax(is_eos.to(torch.int32), dim=1).to(torch.int32)
+            eos_cut = torch.where(has_eos, first + 1, K + 1)
+            m = torch.minimum(torch.minimum(acc + 1, rem), eos_cut)
+            m = torch.where(act, m, 0)                              # emitted count
+            caches = _spec_merge(caches, new_caches, act, m)
+            lengths = lengths + m
+            rem = rem - m
+            last = torch.gather(g, 1, (m - 1).clamp_min(0)[:, None].long())
+            tok = torch.where((m > 0)[:, None], last, tok)
+            hit_eos = has_eos & (eos_cut <= m)                      # eos was emitted
+            act = act & (rem > 0) & ~hit_eos
+            ext = torch.cat([hist, g], dim=1)                       # [B, W+K+1]
+            hist = torch.gather(ext, 1, (m[:, None] + rows).long())
+            toks.append(g)
+            counts.append(m)
+        return (torch.stack(toks, dim=1), torch.stack(counts, dim=1), tok, hist,
+                caches)
+
+    return spec_step

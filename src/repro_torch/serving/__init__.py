@@ -9,9 +9,10 @@
 * :mod:`repro_torch.serving.faults`    — fault-plan types and typed errors
 * :mod:`repro_torch.serving.degrade`   — load-shedding ladder
 * :mod:`repro_torch.serving.reliability` — PCRAM endurance/wear/scrub knobs
+* :mod:`repro_torch.serving.frontdoor` — asyncio streaming front door
+  (backpressure, per-tenant QoS, typed rejections, SSE server)
 
-The host-only modules are copies of the JAX package's; the front door is not
-ported yet.
+The host-only modules are copies of the JAX package's.
 
 Quick start::
 
@@ -29,6 +30,8 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import (FAULT_SITES, EngineStallError, FaultEvent,
                                         FaultPlan, Overloaded, ShuttingDown,
                                         SwapCopyError)
+from repro_torch.serving.frontdoor import (DoneEvent, FrontDoor, HeartbeatEvent,
+                                           TokenBucket, TokenEvent, run_server)
 from repro_torch.serving.metrics import EngineStats, OdinCostModel, summarize
 from repro_torch.serving.reliability import ReliabilityConfig, wear_gini
 from repro_torch.serving.scheduler import (TERMINAL_STATES, PrefixCache, PrefixGrant,
@@ -48,6 +51,8 @@ __all__ = [
     "Request", "RequestState", "Scheduler", "StepPlan", "TERMINAL_STATES",
     "FaultPlan", "FaultEvent", "FAULT_SITES",
     "EngineStallError", "SwapCopyError", "Overloaded", "ShuttingDown",
+    "FrontDoor", "TokenBucket", "TokenEvent", "HeartbeatEvent", "DoneEvent",
+    "run_server",
     "DegradationController", "DegradeConfig", "DEGRADE_LEVELS",
     "ReliabilityConfig", "wear_gini",
     "Tracer", "NullTracer", "NULL_TRACER", "LogHistogram", "MetricsRegistry",

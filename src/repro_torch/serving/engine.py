@@ -11,6 +11,9 @@ serving steps (``launch/steps.py``) on the engine's ``device``:
 * mixed dispatch fuses prefill-chunk rows and decode rows into one tile;
 * ``horizon > 1`` runs up to ``h`` decode steps per dispatch with the
   token carry kept on the device and one host sync at the end;
+* ``spec_ngram = K`` drafts ``K`` tokens a slot by n-gram lookup over an
+  on-device token history and verifies them in one ``K+1``-row forward
+  (the paged kernel's multi-token tile), up to ``h`` such steps a dispatch;
 * swap preemption is a block-to-block index copy on the device;
 * a step that a fault plan poisons runs the guarded decode step, whose
   per-slot finiteness verdict quarantines the poisoned request alone.
@@ -18,13 +21,13 @@ serving steps (``launch/steps.py``) on the engine's ``device``:
 Host syncs happen where the JAX engine syncs (end of a prefill, the token
 readback of each dispatch) and nowhere else.
 
-Not ported yet (see ROADMAP.md): n-gram speculation (``spec_ngram > 0``),
-dense caches (``paged=False`` or non-paged archs), and requests carrying
-``extras``.
+Not ported yet (see ROADMAP.md): dense caches (``paged=False`` or
+non-paged archs) and requests carrying ``extras``.
 """
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -38,7 +41,9 @@ from repro_torch.launch.steps import (init_serving_caches,
                                       make_serving_decode_horizon,
                                       make_serving_decode_step,
                                       make_serving_mixed_step,
-                                      make_slot_prefill_step, pageable_block)
+                                      make_serving_spec_horizon,
+                                      make_slot_prefill_step, pageable_block,
+                                      speculable)
 from repro_torch.models import lm
 from repro_torch.nn import module as nnmod
 from repro_torch.nn.attention import POOL_LEAVES
@@ -75,13 +80,14 @@ class ServingEngine:
       ``(sample_seed, decode step)``: sampled streams are deterministic for
       a seed and horizon-invariant, but not ``jax.random``'s; the first
       sampled token of a request is host-side numpy, as in the JAX engine;
-    * ``jit_cache`` is accepted and unused (eager execution compiles no
-      executables); ``xla_annotations`` wraps each dispatch in a
-      ``torch.profiler.record_function`` range instead;
+    * ``jit_cache`` bounds the LRU of fused step functions keyed by the
+      granted ``(h, spec K)`` (eager functions, no executables; evictions
+      are counted as in the JAX engine); ``xla_annotations`` wraps each
+      dispatch in a ``torch.profiler.record_function`` range instead;
     * the guarded decode step is an eager function built with the others,
       not an executable compiled on first use;
-    * ``spec_ngram > 0``, ``paged=False``, models with non-paged segments
-      and requests with ``extras`` raise ``NotImplementedError``.
+    * ``paged=False``, models with non-paged segments and requests with
+      ``extras`` raise ``NotImplementedError``.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
@@ -115,8 +121,6 @@ class ServingEngine:
             raise ValueError(f"max_len {max_len} not divisible by block_size {block_size}")
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
-        if spec_ngram:
-            raise _not_ported("n-gram speculative decode (spec_ngram > 0)")
         if not paged:
             raise _not_ported("the dense serving cache (paged=False)")
         if not all(pageable_block(b) for b in cfg.blocks):
@@ -148,6 +152,28 @@ class ServingEngine:
         self.sample_seed = int(sample_seed)
         self.horizon = int(horizon)
         self.eos_id = None if eos_id is None else int(eos_id)
+        self.spec_ngram = int(spec_ngram)
+        self.spec_hist = int(spec_hist)
+        self._spec_n = 2                    # n-gram match length (bigram)
+        self.jit_cache = int(jit_cache)
+        if self.spec_ngram:
+            if not speculable(cfg):
+                raise ValueError(
+                    "spec_ngram needs a single-codebook model whose decode "
+                    "state is entirely position-addressed (no SSM/xLSTM "
+                    "recurrent segments) — rollback of rejected draft rows "
+                    "is a length decrement, which recurrent state and "
+                    "codebook frames cannot honor")
+            if self.temperature > 0:
+                raise ValueError(
+                    "spec_ngram is greedy-only (the accept rule compares "
+                    "argmaxes); set temperature=0")
+            if self.spec_hist < self.spec_ngram + self._spec_n + 1:
+                raise ValueError(
+                    f"spec_hist {self.spec_hist} too short for K="
+                    f"{self.spec_ngram} drafts with {self._spec_n}-gram match")
+            # (the JAX engine's sliding-window headroom check has no case
+            # here: windowed segments are refused above)
 
         if n_blocks is None:
             n_blocks = slots * (max_len // block_size)
@@ -158,6 +184,8 @@ class ServingEngine:
         self._decode = make_serving_decode_step(cfg, top_k=self.top_k)
         self._mixed = make_serving_mixed_step(cfg, top_k=self.top_k)
         self._guarded = make_serving_decode_guarded(cfg, top_k=self.top_k)
+        # fused decode functions, one per granted (h, spec K) pair, bounded LRU
+        self._fused: "OrderedDict[Tuple[int, int], Callable]" = OrderedDict()
 
         # ---- PCRAM reliability layer --------------------------------------
         # True → defaults (wear-leveled allocation, no budget, no scrub);
@@ -205,7 +233,8 @@ class ServingEngine:
                       if swap_blocks else None)
         self.sched = Scheduler(slots, self.pool, max_len,
                                swap_pool=self.store.pool if self.store else None,
-                               prefix_cache=prefix_cache, write_span=1)
+                               prefix_cache=prefix_cache,
+                               write_span=self.spec_ngram + 1)
         # under mixed dispatch a prompt chain is registered only once its
         # staged replay finishes (Scheduler.finish_prefill)
         self.sched.defer_prefix_register = self.mixed
@@ -243,6 +272,10 @@ class ServingEngine:
         self._spec_mark = (0, 0)
 
         self._last_tok = torch.zeros((slots, 1), dtype=torch.int32, device=self.device)
+        # per-slot token-history ring for the on-device n-gram draft match
+        # (right-aligned, -1 padded; shifted on the device by every decode)
+        self._hist = (torch.full((slots, self.spec_hist), -1, dtype=torch.int32,
+                                 device=self.device) if self.spec_ngram else None)
         self._slot_len = np.zeros(slots, np.int32)
         self._tables = np.zeros((slots, self.n_pages), np.int32)
         self._tables_dev = torch.as_tensor(self._tables, device=self.device)
@@ -312,6 +345,24 @@ class ServingEngine:
 
     def _set_last_tok(self, slot: int, tok) -> None:
         self._last_tok[slot] = int(np.ravel(tok)[0])
+
+    def _seed_hist(self, req: Request) -> None:
+        """(Re)build the slot's draft-match history from the request's full
+        token context (prompt + every generated token, pending included),
+        on the host at admission and resume only."""
+        ctx = np.concatenate([np.asarray(req.replay_tokens(), np.int32).ravel(),
+                              np.ravel(req.generated[-1]).astype(np.int32)])
+        row = np.full(self.spec_hist, -1, np.int32)
+        tail = ctx[-self.spec_hist:]
+        row[self.spec_hist - len(tail):] = tail
+        self._hist[req.slot] = self._dev(row)
+
+    def _shift_hist(self, nxt, mask) -> None:
+        """Shift each masked slot's one new token into its history ring
+        (the plain, guarded and mixed steps; the spec step shifts its own)."""
+        if self.spec_ngram:
+            shifted = torch.cat([self._hist[:, 1:], nxt], dim=1)
+            self._hist = torch.where(mask[:, None], shifted, self._hist)
 
     def _refresh_tables(self) -> torch.Tensor:
         """Device mirror of running requests' block tables ([slots, P] int32),
@@ -760,6 +811,8 @@ class ServingEngine:
         else:
             pending = req.generated[-1]
         self._set_last_tok(req.slot, pending)
+        if self.spec_ngram:
+            self._seed_hist(req)
 
     # -------------------------------------------------- mixed dispatch path
 
@@ -847,6 +900,7 @@ class ServingEngine:
             self.stats.active_slot_steps += dec_rows
             self.stats.slot_steps += self.slots
             self._last_tok = torch.where(dm_dev[:, None], nxt, self._last_tok)
+            self._shift_hist(nxt, dm_dev)
         for r in decode:
             self._record_writes(r, int(self._slot_len[r.slot]), 1, now)
             self._slot_len[r.slot] += 1
@@ -870,6 +924,8 @@ class ServingEngine:
             else:
                 pending = r.generated[-1]
             self._set_last_tok(r.slot, pending)
+            if self.spec_ngram:
+                self._seed_hist(r)
             if r.done:
                 self._complete(r, now)
 
@@ -949,6 +1005,8 @@ class ServingEngine:
             req.ticket = None
             self._slot_len[req.slot] = req.cached_len
             self._set_last_tok(req.slot, req.generated[-1])
+            if self.spec_ngram:
+                self._seed_hist(req)
             if trace:
                 track = self._slot_track(req.slot)
                 self.tracer.span(
@@ -984,8 +1042,10 @@ class ServingEngine:
             s for s, r in self.sched.running.items() if not r.prefilling)
         mixed_pending = self.mixed and any(
             r.prefilling for r in self.sched.running.values())
+        spec_k = self.spec_ngram
         max_h = self.horizon
         if self.degrade is not None:
+            spec_k = self.degrade.spec_k(spec_k)
             max_h = self.degrade.horizon_cap(max_h)
         if nan_ev is not None and not active_slots:
             self.fault_plan.record(nan_ev, "skipped-idle")
@@ -998,13 +1058,28 @@ class ServingEngine:
         elif mixed_pending:
             self._dispatch_mixed()
         elif active_slots:
-            h = 1
-            if max_h > 1:
-                h = self.sched.grant_horizon(max_h, now, self._est_step_time())
-            if h > 1:
-                self._decode_horizon_steps(active_slots, h)
-            else:
+            if spec_k:
+                # speculation always rides the fused loop (h == 1 is one
+                # draft→verify→accept step); grant 0 ⇒ the pool cannot cover
+                # the worst-case K+1-row write span — plain single step
+                h = self.sched.grant_horizon(max_h, now, self._est_step_time(),
+                                             spec_k=spec_k)
+                if h >= 1:
+                    self._decode_spec_steps(active_slots, h)
+                else:
+                    self._decode_single_step(active_slots)
+            elif self.spec_ngram:
+                # speculation shed by the degradation ladder: plain single
+                # steps keep the n-gram history aligned for the restore
                 self._decode_single_step(active_slots)
+            else:
+                h = 1
+                if max_h > 1:
+                    h = self.sched.grant_horizon(max_h, now, self._est_step_time())
+                if h > 1:
+                    self._decode_horizon_steps(active_slots, h)
+                else:
+                    self._decode_single_step(active_slots)
         self.stats.steps += 1
         if self.degrade is not None:
             self._observe_degrade(self._now())
@@ -1018,10 +1093,11 @@ class ServingEngine:
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
         tables = self._refresh_tables()
+        active_dev = self._dev(active)
         with self._annotate("decode"):
             nxt, self.caches = self._decode(
                 self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), self._dev(active), tables,
+                self._dev(self._slot_len), active_dev, tables,
                 self._generator(self.stats.decode_steps), self.temperature)
             host = nxt.cpu().numpy()                 # syncs the step
         wall = self._now() - t0
@@ -1042,6 +1118,7 @@ class ServingEngine:
         self.stats.active_slot_steps += len(active_slots)
         self.stats.slot_steps += self.slots
         self._last_tok = nxt
+        self._shift_hist(nxt, active_dev)
         now = self._now()
         for s in active_slots:
             req = self.sched.running[s]
@@ -1070,10 +1147,11 @@ class ServingEngine:
         self.fault_plan.record(ev, "poisoned", slot=target,
                                rid=self.sched.running[target].rid)
         tables = self._refresh_tables()
+        active_dev = self._dev(active)
         with self._annotate("decode"):
             nxt, bad, self.caches = self._guarded(
                 self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), self._dev(active), tables,
+                self._dev(self._slot_len), active_dev, tables,
                 self._generator(self.stats.decode_steps), self.temperature,
                 self._dev(poison))
             host = nxt.cpu().numpy()                 # syncs the step
@@ -1096,6 +1174,7 @@ class ServingEngine:
         self.stats.active_slot_steps += len(active_slots)
         self.stats.slot_steps += self.slots
         self._last_tok = nxt
+        self._shift_hist(nxt, active_dev)
         now = self._now()
         for s in active_slots:
             req = self.sched.running[s]
@@ -1131,9 +1210,8 @@ class ServingEngine:
         step0 = self.stats.decode_steps
         gens = (None if self.temperature <= 0
                 else [self._generator(step0 + i) for i in range(h)])
-        fn = make_serving_decode_horizon(self.cfg, h, top_k=self.top_k)
         with self._annotate("horizon"):
-            block, counts, last, self.caches = fn(
+            block, counts, last, self.caches = self._fused_fn(h, 0)(
                 self.params, self.caches, self._last_tok,
                 self._dev(self._slot_len), self._dev(active), self._dev(rem),
                 tables, gens, self.temperature,
@@ -1173,6 +1251,105 @@ class ServingEngine:
             req = self.sched.running[s]
             if req.done:
                 self._complete(req, t_before + int(counts[s]) * span / h)
+
+    def _decode_spec_steps(self, active_slots: List[int], h: int) -> None:
+        """One dispatch of ``h`` draft→verify→accept inner steps, one host
+        sync.
+
+        Each inner step emits 1..K+1 tokens per live slot (the accepted
+        draft prefix plus the bonus token); ``counts[s, hh]`` tells the host
+        which prefix of ``block[s, hh]`` is real.  Timestamps interpolate
+        over the dispatch's engine-clock span per inner step, and within a
+        step across its accepted run."""
+        K = self.spec_ngram
+        t_before = self._now()
+        active = np.zeros(self.slots, bool)
+        active[active_slots] = True
+        rem = np.zeros(self.slots, np.int32)
+        for s in active_slots:
+            rem[s] = self.sched.running[s].remaining
+        tables = self._refresh_tables()
+        with self._annotate("spec-horizon"):
+            block, counts, last, hist, self.caches = self._fused_fn(h, K)(
+                self.params, self.caches, self._last_tok,
+                self._dev(self._slot_len), self._dev(active), self._dev(rem),
+                self._hist, tables, -1 if self.eos_id is None else self.eos_id)
+            block, counts = block.cpu().numpy(), counts.cpu().numpy()  # ONE sync
+        self._last_tok = last
+        self._hist = hist
+        wall = self._now() - t_before
+        self.stats.decode_time += wall
+        self.metrics.observe("dispatch_decode_s", wall)
+        self.stats.decode_steps += h
+        self.stats.dispatches += 1
+        self.stats.decode_dispatches += 1
+        self.stats.host_syncs += 1
+        live = counts > 0                                  # [slots, h]
+        self.stats.active_slot_steps += int(live.sum())
+        self.stats.slot_steps += self.slots * h
+        self.stats.spec_drafted += K * int(live.sum())
+        self.stats.spec_accepted += int((counts - live).sum())
+        # every live inner step verified a K+1-row forward; rows beyond the
+        # emitted run are rejected drafts, billed as verify overhead both
+        # fleet-wide and on the request that incurred them
+        emitted = int(counts.sum())
+        rows = (K + 1) * int(live.sum())
+        self.stats.spec_overhead_rows += rows - emitted
+        for s in active_slots:
+            s_over = int(((K + 1) * live[s] - counts[s]).sum())
+            if s_over:
+                self.sched.running[s].spec_overhead_rows += s_over
+        if self.tracer.enabled:
+            self.tracer.span(
+                "spec-horizon", "dispatch", "dispatch", t_before, wall,
+                args={"kind": "spec-horizon", "h": h, "spec_k": K,
+                      "slots_active": len(active_slots), "tokens": emitted,
+                      "drafted": K * int(live.sum()),
+                      "accepted": int((counts - live).sum()),
+                      "rows": rows, "overhead_rows": rows - emitted,
+                      "host_syncs": 1,
+                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+        now_w = self._now()
+        for s in active_slots:
+            # endurance mirror: every live inner step wrote a K+1-row verify
+            # tile at the slot's running position (rejected rows were
+            # physically written before rollback), and the position advanced
+            # by the accepted count
+            pos = int(self._slot_len[s])
+            for hh in range(h):
+                if live[s, hh]:
+                    self._record_writes(self.sched.running[s], pos, K + 1, now_w)
+                    pos += int(counts[s, hh])
+        span = wall
+        last_t = {}
+        for hh in range(h):                      # step-major: matches h=1 order
+            for s in active_slots:
+                m = int(counts[s, hh])
+                for j in range(m):
+                    t_tok = t_before + (hh + (j + 1) / m) * span / h
+                    self._slot_len[s] += 1
+                    self.stats.decode_tokens += 1
+                    self._emit(self.sched.running[s], block[s, hh, j], t_tok)
+                    last_t[s] = t_tok
+        for s in active_slots:
+            req = self.sched.running[s]
+            if req.done:
+                self._complete(req, last_t.get(s, t_before + span))
+
+    def _fused_fn(self, h: int, k: int) -> Callable:
+        """LRU cache of fused decode functions, keyed ``(h, spec K)``."""
+        key = (h, k)
+        fn = self._fused.get(key)
+        if fn is None:
+            fn = (make_serving_spec_horizon(self.cfg, h, k, n=self._spec_n) if k
+                  else make_serving_decode_horizon(self.cfg, h, top_k=self.top_k))
+            self._fused[key] = fn
+            if len(self._fused) > self.jit_cache:
+                self._fused.popitem(last=False)
+                self.stats.jit_evictions += 1
+        else:
+            self._fused.move_to_end(key)
+        return fn
 
     def _est_step_time(self) -> float:
         """Measured seconds per decode token step (0 until the first step)."""

@@ -122,7 +122,8 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32)
 
 
-@pytest.mark.parametrize("kw", [{"spec_ngram": 2}, {"paged": False}])
+# n_blocks=0 asks for the JAX engine's dense live cache, as paged=False does
+@pytest.mark.parametrize("kw", [{"n_blocks": 0}, {"paged": False}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32,

@@ -11,7 +11,9 @@ Phases, each fatal on failure:
    yardstick against the kernel's bound (device times by CUDA-graph
    replay for every kernel): ``paged_attn`` (split over
    the page axis, then a combine pass) at the serving path's shapes (decode,
-   and the speculative phase's 5-token verify tile), one long slot, 64
+   and the speculative phase's 5-token verify tile, at phi4's 3 query heads
+   a KV head and at qwen3-moe's 16, whose launch plan cuts a head's rows
+   into 4 and 20 chunks), one long slot, 64
    slots that the plan does not split, and window and verify cases whose
    plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
@@ -37,8 +39,9 @@ Phases, each fatal on failure:
    8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
    yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
    on the card) against the CPU's int32 matmul;
-3. check a small model end to end: the engine on the card (CUDA kernel) and
-   on the CPU (plain path) must emit the same greedy tokens in float32;
+3. check two small models end to end, dense and MoE: the engine on the
+   card (CUDA kernel) and on the CPU (plain path) must emit the same greedy
+   tokens in float32;
 4. serve full-width phi4-mini-3.8b (all 32 layers, random bf16 weights from a
    seeded generator) through the port's ServingEngine with its defaults
    (mixed dispatch, prefix sharing) and show that every forward that carried
@@ -66,14 +69,22 @@ Phases, each fatal on failure:
    request while the co-batched streams keep the fault-free run's; then a
    generated chaos plan with the degradation ladder on runs to completion
    with every request terminal;
-7. run the paper's experiment at full width (``launch/odin_inference``):
+7. serve qwen3-moe-235b-a22b at every published width over 8 of its 94
+   layers (random bf16 weights, the router float32): the serving phase's 8
+   prompts of 512 tokens with 32 greedy tokens (mixed dispatch, prefix
+   sharing), 16 with mixed dispatch off held against them, n-gram
+   speculation (K = 4, horizon 4) on repetitive traffic held against a
+   spec-off run, every decode-carrying forward launching
+   ``paged_attention`` once per layer; then a decode profile with the
+   expert products' and ``paged_attn``'s shares of the device time;
+8. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-8. run the kernel bench entry point (``launch/kernel_bench``), the path of
+9. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -82,11 +93,12 @@ than one path, the count of each.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
-odin_linear,serve_sc,serve_spec,frontdoor`` (any subset) runs only those
+odin_linear,serve_sc,serve_spec,frontdoor,serve_moe`` (any subset) runs only those
 checks, for a focused call, and prints no kernels line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -118,6 +130,14 @@ TOL = {torch.float32: (3e-5, 0.0),
 
 def log(*a):
     print(*a, flush=True)
+
+
+def free_device_memory():
+    """Return the memory of dropped weights to the card: the engines that
+    held them sit in reference cycles (``counting`` wraps their methods in
+    closures over themselves), which only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -248,9 +268,9 @@ def tol_excess(out, ref):
 
 
 def live_bytes_and_ops(c):
-    """Bytes the function must move (q, out, tables, lengths once; every
-    visible K/V row once) and its multiply-adds (QK and PV over visible
-    keys)."""
+    """Bytes the function must move — every visible K/V row once, and q,
+    out, tables and lengths once, returned apart — and its multiply-adds
+    (QK and PV over visible keys)."""
     kp = c["pools"][0][0]
     _, bs, Hkv, D = kp.shape
     q, Q, G, window = c["q"], c["Q"], c["G"], c["window"]
@@ -265,7 +285,7 @@ def live_bytes_and_ops(c):
             ops += 4 * G * D * vis * Hkv
     kv_bytes = 2 * rows * Hkv * D * kp.element_size()
     io = 2 * q.numel() * q.element_size() + c["tables"].numel() * 4 + c["lengths"].numel() * 4
-    return kv_bytes + io, ops
+    return kv_bytes, io, ops
 
 
 def library_call(c):
@@ -318,7 +338,16 @@ def check_paged_attn():
         # the speculative serving phase's verify tile: K = 4 drafts + the
         # pending token at the serving phase's lengths (Q·G = 15 rows a head)
         attn_case("verify_q5_serving_bf16", Q=5, lengths=(512, 576), copies=4, seed=9),
+        # qwen3-moe-235b-a22b's serving shapes: 64 query heads over 4 KV
+        # heads (G = 16), decode and the Q = 5 verify tile (80 rows a head);
+        # 8 pools, as the live K/V of one is half phi4's
+        attn_case("decode_qwen3_g16_bf16", H=64, Hkv=4, lengths=(512, 576), copies=8,
+                  seed=10),
+        attn_case("verify_q5_qwen3_g16_bf16", Q=5, H=64, Hkv=4, lengths=(512, 576),
+                  copies=8, seed=11),
     ]
+    # row chunks of the launch plan, each re-reading its split's pages
+    expect_chunks = {"decode_qwen3_g16_bf16": 4, "verify_q5_qwen3_g16_bf16": 20}
     # cases whose plan must leave CTAs with no visible key (exact empty partials)
     need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
     lines = {}
@@ -353,7 +382,8 @@ def check_paged_attn():
         if c["special"] == "zero_len":
             if out[0].abs().max().item() != 0.0 or out[1, :Q - 1].abs().max().item() != 0.0:
                 raise AssertionError("paged_attn: zero-length slot / masked rows not exactly 0")
-        nbytes, ops = live_bytes_and_ops(c)
+        kv_bytes, io_bytes, ops = live_bytes_and_ops(c)
+        nbytes = kv_bytes + io_bytes
         peak = BF16_FLOPS if c["q"].dtype == torch.bfloat16 else F32_FLOPS
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
         bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak else "operations"
@@ -367,6 +397,11 @@ def check_paged_attn():
                 "bound_ms": bound_ms, "bound_by": bound_by, "live_bytes": nbytes, **plan,
                 "launch_plan": launch_plan(Q * G, D, kp.shape[1], kp.element_size(),
                                            plan["pages_per_split"])}
+        chunks = line["launch_plan"]["row_chunks"]
+        line["kv_bytes_read_by_plan"] = chunks * kv_bytes
+        if chunks != expect_chunks.get(c["name"], chunks):
+            raise AssertionError(f"paged_attn {c['name']}: {chunks} row chunks, expected "
+                                 f"{expect_chunks[c['name']]}")
         if len(c["pools"]) > 1 or c["name"] in ("window_bf16", "verify_q3_bf16"):
             packed = [(qt.contiguous(), kpi, vpi) for kpi, vpi in c["pools"]]
             i = [0]
@@ -403,33 +438,40 @@ def check_paged_attn():
 # ---------------------------------------------------------------------------
 
 def small_model_card_vs_cpu():
-    """A 2-layer model with the kernel's head dim: greedy streams of the
-    engine on the card (CUDA kernel) equal those on the CPU (plain path)."""
-    from repro_torch.configs.base import AttnConfig, BlockConfig, ModelConfig
+    """2-layer models with the kernel's head dim, dense and MoE: greedy
+    streams of the engine on the card (CUDA kernel) equal those on the CPU
+    (plain path), in float32."""
+    from repro_torch.configs.base import AttnConfig, BlockConfig, ModelConfig, MoEConfig
     from repro_torch.models import lm
     from repro_torch.nn.module import materialize
     from repro_torch.serving import ServingEngine, WorkloadSpec, make_requests
     from repro_torch.tree import tree_map
 
-    cfg = ModelConfig(name="smoke-d64", d_model=256, vocab=512, kv_dtype="float32",
-                      blocks=(BlockConfig(kind="dense", n_layers=2, d_ff=512,
-                                          attn=AttnConfig(n_heads=4, n_kv_heads=2,
-                                                          d_head=64)),))
-    gen = torch.Generator().manual_seed(0)
-    params = tree_map(lambda t: t.float(), materialize(lm.param_spec(cfg), gen, "cpu"))
+    attn = AttnConfig(n_heads=4, n_kv_heads=2, d_head=64)
+    blocks = {"dense": BlockConfig(kind="dense", n_layers=2, d_ff=512, attn=attn),
+              "moe": BlockConfig(kind="moe", n_layers=2, attn=attn,
+                                 moe=MoEConfig(n_experts=8, top_k=2, d_ff=128,
+                                               aux_free_bias=False))}
     spec = WorkloadSpec(n_requests=5, rate=1e9, prompt_buckets=(24, 40), gen_buckets=(8, 20))
-    streams = {}
-    for dev in ("cpu", "cuda"):
-        p = tree_map(lambda t: t.to(dev), params)
-        eng = ServingEngine(cfg, slots=3, max_len=64, block_size=16, params=p,
-                            device=dev, prefill_chunk=16)
-        reqs = make_requests(cfg, spec, seed=1)
-        eng.run(reqs)
-        streams[dev] = {r.rid: [int(np.ravel(t)[0]) for t in r.generated] for r in reqs}
-    if streams["cpu"] != streams["cuda"]:
-        raise AssertionError(f"small model: card {streams['cuda']} != cpu {streams['cpu']}")
-    n = sum(len(s) for s in streams["cuda"].values())
-    log(f"small model (d_head 64, float32): card == cpu greedy streams, {n} tokens")
+    for kind, block in blocks.items():
+        cfg = ModelConfig(name=f"smoke-{kind}-d64", d_model=256, vocab=512,
+                          kv_dtype="float32", blocks=(block,))
+        gen = torch.Generator().manual_seed(0)
+        params = tree_map(lambda t: t.float(), materialize(lm.param_spec(cfg), gen, "cpu"))
+        streams = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            eng = ServingEngine(cfg, slots=3, max_len=64, block_size=16, params=p,
+                                device=dev, prefill_chunk=16)
+            reqs = make_requests(cfg, spec, seed=1)
+            eng.run(reqs)
+            streams[dev] = {r.rid: [int(np.ravel(t)[0]) for t in r.generated] for r in reqs}
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(f"small {kind} model: card {streams['cuda']} != "
+                                 f"cpu {streams['cpu']}")
+        n = sum(len(s) for s in streams["cuda"].values())
+        log(f"small {kind} model (d_head 64, float32): card == cpu greedy streams, "
+            f"{n} tokens")
 
 
 def load_phi4():
@@ -669,7 +711,8 @@ def compare_streams(params, cfg, prompts, base, other, what):
 def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
     """Two greedy streams of one request may part only at a near tie: at the
     first differing step both tokens must be the reference forward's top two,
-    with logits within LOGIT_TIE_TOL.  Each such step is reported."""
+    with logits within LOGIT_TIE_TOL.  Each such step is reported.  The
+    reference forward routes MoE blocks drop-free, as serving does."""
     from repro_torch.models import lm
     t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if t is None:
@@ -677,7 +720,7 @@ def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
     ctx = torch.as_tensor(np.concatenate([prompt, np.asarray(a[:t], np.int32)]),
                           device="cuda")[None]
     with torch.no_grad():
-        logits = lm.forward(params, ctx, cfg)[0][0, -1].float()
+        logits = lm.forward(params, ctx, cfg, moe_no_drop=True)[0][0, -1].float()
     top = torch.topk(logits, 2)
     gap = abs(logits[a[t]].item() - logits[b[t]].item())
     report = {"streams": what, "rid": rid, "step": t, "token_a": a[t], "token_b": b[t],
@@ -691,14 +734,16 @@ def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
 
 
 def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
-                   label="decode profile (8 slots, 4 steps each block)"):
+                   label="decode profile (8 slots, 4 steps each block)", op_shares=None):
     """Plain decode steps of the full-width engine, one slot a prompt: after
     ``block`` warm-up steps, ``block`` timed without the profiler, ``block``
     under it and ``block`` more without it.  Reports device time by kernel,
     device operations per step, and the busy share of each wall time.
     Kernel durations come from the profiled steps; the unprofiled share
     divides them by the mean wall time of the unprofiled steps around them,
-    same engine and batch."""
+    same engine and batch.  ``op_shares`` maps a label to a predicate on the
+    profiler's operator rows (grouped by input shape): the device time of
+    the kernels those operators launched is reported a step and as a share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -722,7 +767,8 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
 
     steps()
     before = steps()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(op_shares)) as prof:
         wall_prof = steps()
     after = steps()
     wall_plain = (before + after) / 2
@@ -759,6 +805,18 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
         "paged_attn_device_share": sum(dev_us(e) for e in kernels if "paged_attn" in e.key)
         / (busy * block * 1e6),
         "top_device_ms_per_step": {e.key[:60]: dev_us(e) / (block * 1e3) for e in top}}
+    if op_shares:
+        by_shape = prof.key_averages(group_by_input_shape=True)
+
+        def op_dev_us(e):       # an operator row: the device time of its kernels
+            return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+        for what, pick in op_shares.items():
+            rows = [e for e in by_shape if e.device_type == DeviceType.CPU and pick(e)]
+            us = sum(op_dev_us(e) for e in rows)
+            report[f"{what}_ms_per_step"] = us / (block * 1e3)
+            report[f"{what}_device_share"] = us / (busy * block * 1e6)
+            report[f"{what}_calls_per_step"] = sum(e.count for e in rows) / block
     log(f"{label}:", json.dumps(report))
     return report
 
@@ -826,6 +884,106 @@ def serve_spec(cfg, params, prompts, exact_streams, exact_tps):
         for q, n in r["launches_by_q"].items():
             by_q[q] = by_q.get(q, 0) + n
     return launches, by_q
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Mixture-of-Experts at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+
+
+def load_qwen3():
+    """qwen3-moe-235b-a22b at every published width (d_model 4096, 64 query
+    heads over 4 KV heads of 128, 128 experts, top-8, expert d_ff 1536, vocab
+    151,936) over 8 of its 94 layers, random bf16 weights (the router
+    float32) from a seeded generator on the card, and eight 512-token prompts."""
+    import dataclasses
+
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+
+    full = registry.get_config(MOE_ARCH)
+    cfg = full.with_overrides(blocks=tuple(dataclasses.replace(b, n_layers=MOE_LAYERS)
+                                           for b in full.blocks))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = materialize(lm.param_spec(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    log(f"{MOE_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.1f} GB in bf16) of the "
+        f"published {count_params(lm.param_spec(full)) / 1e9:.2f} B, materialized on the "
+        f"card in {time.perf_counter() - t0:.1f} s; reduced: "
+        + json.dumps({"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}))
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, cfg.vocab, size=(8, 512), dtype=np.int32))
+    return cfg, params, prompts
+
+
+def _is_expert_bmm(cfg):
+    """Profiler row of an expert product: ``aten::bmm`` over n_experts batches."""
+    E = cfg.blocks[0].moe.n_experts
+    return lambda e: (e.key == "aten::bmm" and bool(e.input_shapes)
+                      and bool(e.input_shapes[0]) and e.input_shapes[0][0] == E)
+
+
+def serve_moe(cfg, params, prompts):
+    """qwen3-moe-235b-a22b served through the port's engine on the card: the
+    serving phase's 8 prompts of 512 tokens, 32 greedy tokens with the
+    engine's defaults (mixed dispatch, prefix sharing); 16 with mixed
+    dispatch off, whose streams are held against the first run's (a parting
+    only at a reported near tie); n-gram speculation (K = 4, horizon 4) on
+    prompts tiled from an 8-token pattern against a spec-off run at horizon
+    4, held the same way; then a decode profile with the expert products'
+    and ``paged_attn``'s shares.  Every forward that carries a decode row, a
+    mixed tile or a verify tile launches ``paged_attention`` once per layer
+    (:class:`counting`).  Returns each run's launches and the spec runs'
+    launches by query length."""
+    a = serve(cfg, params, prompts, 32)
+    s1 = a["summary"]
+    line = {"arch": MOE_ARCH, "layers": cfg.n_layers, "requests": 8, "prompt": 512,
+            "generated": 32, "wall_s": a["wall"],
+            "decode_tokens_per_s": s1["decode_tokens_per_s"], "ttft_s": s1["ttft_s"],
+            "tpot_s": s1["tpot_s"], "mixed_dispatches": s1["mixed"]["dispatches"],
+            "decode_dispatches": s1["decode_dispatches"],
+            "forwards_through_kernel": a["forwards"], "paged_attn_launches": a["launches"],
+            "launches_per_forward": a["launches"] / a["forwards"],
+            "peak_memory_gb": a["peak"] / 1e9, "kv_cache_bytes": s1["kv_cache_bytes"]}
+    log("moe serving:", json.dumps(line))
+    b = serve(cfg, params, prompts, 16, mixed=False)
+    log(f"moe mixed=False run: {b['forwards']} decode forwards, {b['launches']} launches, "
+        f"{b['wall']:.1f} s")
+    compare_streams(params, cfg, prompts, {rid: st[:16] for rid, st in a["streams"].items()},
+                    b["streams"], "moe mixed=False vs the mixed run's first 16 tokens")
+
+    rng = np.random.default_rng(17)
+    pats = rng.integers(0, cfg.vocab, size=(len(prompts), 8), dtype=np.int32)
+    rep = [np.tile(p, 64) for p in pats]
+    off = serve(cfg, params, rep, 32, horizon=SPEC_H)
+    on = serve(cfg, params, rep, 32, spec_ngram=SPEC_K, horizon=SPEC_H)
+    if on["launches_by_q"].get(SPEC_K + 1, 0) <= 0:
+        raise AssertionError(f"moe spec run: no paged_attention launch at Q = {SPEC_K + 1}: "
+                             f"{on['launches_by_q']}")
+    n_equal = compare_streams(params, cfg, rep, off["streams"], on["streams"],
+                              "moe spec off/on, repetitive traffic")
+    s_on, s_off = on["summary"], off["summary"]
+    if s_on["speculation"]["drafted"] <= 0:
+        raise AssertionError(f"moe spec run drafted nothing: {s_on['speculation']}")
+    log("moe speculative serving:", json.dumps({
+        "traffic": "repetitive", "requests": len(rep), "prompt": 512, "generated": 32,
+        "spec_k": SPEC_K, "horizon": SPEC_H, "streams_equal_to_spec_off": n_equal,
+        "speculation": s_on["speculation"], "tokens_per_dispatch": s_on["tokens_per_dispatch"],
+        "decode_tokens_per_s": s_on["decode_tokens_per_s"], "wall_s": on["wall"],
+        "paged_attn_launches": on["launches"], "paged_attn_launches_by_q": on["launches_by_q"],
+        "spec_off_tokens_per_dispatch": s_off["tokens_per_dispatch"],
+        "spec_off_decode_tokens_per_s": s_off["decode_tokens_per_s"],
+        "spec_off_wall_s": off["wall"], "spec_off_paged_attn_launches": off["launches"],
+        "peak_memory_gb": max(on["peak"], off["peak"]) / 1e9}))
+    profile_decode(params, cfg, prompts, label="moe decode profile (8 slots, 4 steps each "
+                   "block)", op_shares={"expert_bmm": _is_expert_bmm(cfg)})
+    launches = {"serve_moe": a["launches"], "serve_moe_unmixed": b["launches"],
+                "serve_moe_repetitive_h4": off["launches"], "serve_moe_spec": on["launches"]}
+    return launches, on["launches_by_q"]
 
 
 def _free_port() -> int:
@@ -1243,7 +1401,7 @@ def check_rail_dot():
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: the CNN path and the kernel bench
+# phases 8-9: the CNN path and the kernel bench
 # ---------------------------------------------------------------------------
 
 def cnn_experiment():
@@ -1764,13 +1922,14 @@ def guarded_faults(cfg, params, rng):
 
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
-            "frontdoor")
+            "frontdoor", "serve_moe")
 
 
 def run_picked(picked, name, smi):
     """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
     checked row counts it needs; ``serve_spec`` the spec-off run of the
-    serving traffic it is held against); no kernels line."""
+    serving traffic it is held against; ``serve_moe`` the small models'
+    card-vs-CPU check); no kernels line."""
     if "paged_attn" in picked:
         check_paged_attn()
     if "act_pool" in picked:
@@ -1789,6 +1948,11 @@ def run_picked(picked, name, smi):
                    base["summary"]["decode_tokens_per_s"])
     if "frontdoor" in picked:
         frontdoor(cfg, params, prompts)
+    if "serve_moe" in picked:
+        params = None                   # phi4's weights go before qwen3's load
+        free_device_memory()
+        small_model_card_vs_cpu()
+        serve_moe(*load_qwen3())
     log(smi)
     log(json.dumps({"ok": True, "phases": sorted(picked),
                     "device": {"platform": "gpu", "kind": name,
@@ -1849,7 +2013,14 @@ def main(argv=None):
     paged_launches.update(serve_int8=odin["int8"]["launches"], serve_sc=odin["sc"]["launches"])
     paged_launches.update(guarded_faults(cfg, params, rng))
     del params
-    torch.cuda.empty_cache()
+    free_device_memory()
+    t_moe = time.perf_counter()
+    moe_cfg, moe_params, moe_prompts = load_qwen3()
+    moe_launches, moe_by_q = serve_moe(moe_cfg, moe_params, moe_prompts)
+    paged_launches.update(moe_launches)
+    del moe_params
+    free_device_memory()
+    log(f"serve_moe phase: {time.perf_counter() - t_moe:.1f} s")
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
                    "serve_sc": odin["sc"]["sc_mac_launches"]}
     int8_launches = kernel_bench()
@@ -1870,6 +2041,7 @@ def main(argv=None):
                                                   "library_ms", "n_splits", "launch_plan")}
                         for k, v in attn_lines.items() if "ms" in v},
         "launches_by_query_len_spec_paths": spec_by_q,
+        "launches_by_query_len_moe_spec": moe_by_q,
     }, {
         "name": "sc_mac", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",
@@ -1903,6 +2075,7 @@ def main(argv=None):
         "bound_ms": act_rep["bound_ms"], "bound_by": act_rep["bound_by"],
         "library_ms": None,
     }]
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s from the kernel build to the last phase")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

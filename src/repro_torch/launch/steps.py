@@ -7,6 +7,8 @@ decode.  Each ``make_*`` returns a plain function that runs eagerly on the
 caches' device; the horizons' ``lax.scan`` is a Python loop whose carry
 stays on the device (one host sync per horizon, taken by the engine).
 
+Every forward here routes MoE blocks drop-free (``moe_no_drop=True``), as
+the JAX steps do: a token's experts never depend on what shares its batch.
 Pool leaves are updated in place; ``pos`` leaves are recomputed and merged
 with the activity mask, as the JAX steps merge their functional caches.
 Sampling draws from a ``torch.Generator`` seeded per dispatch, so sampled
@@ -112,7 +114,7 @@ def make_slot_prefill_step(cfg: ModelConfig) -> Callable:
 
         sl = map_with_name(slice_slot, caches)
         logits, sl, _ = lm.forward(params, tokens, cfg, caches=sl, start_pos=start,
-                                   tables=tables[slot:slot + 1])
+                                   moe_no_drop=True, tables=tables[slot:slot + 1])
         for (_, name, leaf), (_, _, new) in zip(leaves_with_path(caches),
                                                 leaves_with_path(sl)):
             if name not in POOL_LEAVES:
@@ -149,7 +151,8 @@ def _decode_forward(params, caches, tokens, lengths, active, tables, cfg: ModelC
     trash = _pool_trash_block(caches)
     tables = torch.where(active[:, None], tables, trash)
     logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
-                                       start_pos=lengths[:, None], tables=tables)
+                                       start_pos=lengths[:, None], moe_no_drop=True,
+                                       tables=tables)
     return logits, _merge(active, caches, new_caches)
 
 
@@ -234,7 +237,7 @@ def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
         # position (pad rows get earlier, possibly negative, positions)
         start = (lengths + q_lens - Q)[:, None]
         logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
-                                           start_pos=start, tables=tabs,
+                                           start_pos=start, moe_no_drop=True, tables=tabs,
                                            q_lens=q_lens, q_decode=decode & active)
         caches = _merge(active, caches, new_caches)
         nxt = _sample_tokens(logits, temperature, top_k, generator)
@@ -377,7 +380,7 @@ def make_serving_spec_horizon(cfg: ModelConfig, H: int, K: int,
             tin = torch.cat([tok, draft], dim=1)                    # [B, K+1]
             logits, new_caches, _ = lm.forward(
                 params, tin, cfg, caches=caches, start_pos=lengths[:, None],
-                tables=tabs, spec_decode=True)
+                moe_no_drop=True, tables=tabs, spec_decode=True)
             g = torch.argmax(logits, dim=-1).to(torch.int32)        # [B, K+1]
             # d_j is accepted while it equals the argmax one position earlier
             match = (draft == g[:, :K]).to(torch.int32)

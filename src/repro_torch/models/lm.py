@@ -1,4 +1,4 @@
-"""Decoder LM over stacked layer segments (dense GQA stacks).
+"""Decoder LM over stacked layer segments (dense and MoE GQA stacks).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
 package; a Python loop over the layers takes the place of its ``lax.scan``
@@ -72,13 +72,16 @@ def _restack(stacked, per_layer, name: str = ""):
 
 
 def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
-            tables=None, spec_decode: bool = False, q_lens=None, q_decode=None):
+            moe_no_drop: bool = False, tables=None, spec_decode: bool = False,
+            q_lens=None, q_decode=None):
     """tokens: [B,S] → (logits [B,S,V], new_caches, hidden).
 
     ``caches``: list of per-segment stacked caches (or None).  ``start_pos``:
     absolute position of tokens[:, 0] (a scalar or per-slot [B, 1] tensor);
-    defaults to 0.  ``tables``: per-slot KV block tables [B, n_pages] of the
-    paged pool (one table serves every layer).  ``spec_decode``, ``q_lens``
+    defaults to 0.  ``moe_no_drop``: route MoE blocks without capacity
+    dropping (the serving paths: exact, per-token routing).  ``tables``:
+    per-slot KV block tables [B, n_pages] of the paged pool (one table
+    serves every layer).  ``spec_decode``, ``q_lens``
     and ``q_decode`` are passed to the paged attention core (see
     ``nn.attention._paged_gqa_core``); with ``q_lens`` the ``start_pos`` is
     the per-slot position of row 0 of the right-aligned tile.
@@ -100,7 +103,8 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
             p_l = tree_map(lambda a: a[layer], seg)
             c_l = None if c is None else tree_map(lambda a: a[layer], c)
             x, c2 = block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
-                                odin=odin, norm_eps=cfg.norm_eps, tables=tables,
+                                odin=odin, norm_eps=cfg.norm_eps,
+                                moe_no_drop=moe_no_drop, tables=tables,
                                 spec_decode=spec_decode, q_lens=q_lens,
                                 q_decode=q_decode)
             per_layer.append(c2)
@@ -129,7 +133,13 @@ def init_caches(cfg: ModelConfig, attn_override):
 
 
 def model_flops(cfg: ModelConfig, n_tokens: int, train: bool = True) -> float:
-    """MODEL_FLOPS = 6·N·D for training, 2·N·D for inference (dense models:
-    every parameter is active)."""
+    """MODEL_FLOPS = 6·N_active·D for training, 2·N_active·D for inference:
+    the parameters a token touches, every one but the routed experts it does
+    not pick (``n_experts - top_k`` of them in each MoE layer)."""
+    inactive = 0
+    for b in cfg.blocks:
+        if b.kind == "moe" and b.moe is not None:
+            per_expert = 3 * cfg.d_model * b.moe.d_ff
+            inactive += b.n_layers * per_expert * (b.moe.n_experts - b.moe.top_k)
     mult = 6.0 if train else 2.0
-    return mult * count_params(param_spec(cfg)) * n_tokens
+    return mult * (count_params(param_spec(cfg)) - inactive) * n_tokens

@@ -14,6 +14,7 @@ __all__ = ["ARCH_IDS", "get_config", "get_smoke"]
 
 _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,5 +1,6 @@
-"""Transformer blocks: the dense branch (attention + MLP) of the JAX
-package's ``nn/blocks.py``.  MoE, Hymba and xLSTM blocks are not ported yet.
+"""Transformer blocks: the dense and MoE branches (attention + MLP or
+mixture of experts) of the JAX package's ``nn/blocks.py``.  Hymba and xLSTM
+blocks are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,12 +12,13 @@ from repro_torch.configs.base import BlockConfig
 from repro_torch.nn.attention import attention, attn_spec
 from repro_torch.nn.layers import activation, linear, linear_spec, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.moe import moe_block, moe_spec
 
 __all__ = ["block_spec", "block_apply"]
 
 
 def _check_kind(cfg: BlockConfig) -> None:
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.kind} blocks are not ported to PyTorch yet (see ROADMAP.md)")
 
@@ -44,18 +46,23 @@ def _mlp(p, x, act: str, odin):
 
 def block_spec(cfg: BlockConfig, d_model: int) -> Dict:
     _check_kind(cfg)
-    return {
+    spec = {
         "ln1": norm_spec(d_model),
         "ln2": norm_spec(d_model),
         "attn": attn_spec(cfg.attn, d_model),
-        "mlp": _mlp_spec(d_model, cfg.d_ff, cfg.activation),
     }
+    if cfg.kind == "dense":
+        spec["mlp"] = _mlp_spec(d_model, cfg.d_ff, cfg.activation)
+    else:
+        spec["moe"] = moe_spec(cfg.moe, d_model)
+    return spec
 
 
 def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
-                norm_eps: float = 1e-5, tables=None, spec_decode: bool = False,
-                q_lens=None, q_decode=None):
-    """(params, x [B,S,d], cache) → (x', cache').  ``tables``, ``spec_decode``,
+                norm_eps: float = 1e-5, moe_no_drop: bool = False, tables=None,
+                spec_decode: bool = False, q_lens=None, q_decode=None):
+    """(params, x [B,S,d], cache) → (x', cache').  ``moe_no_drop`` routes an
+    MoE block without capacity dropping; ``tables``, ``spec_decode``,
     ``q_lens`` and ``q_decode`` go to the paged attention core."""
     _check_kind(cfg)
     a, ac = attention(p["attn"], rmsnorm(x, p["ln1"], norm_eps), cfg.attn,
@@ -64,6 +71,11 @@ def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
                       tables=tables, spec_decode=spec_decode, q_lens=q_lens,
                       q_decode=q_decode)
     x = x + a
-    x = x + _mlp(p["mlp"], rmsnorm(x, p["ln2"], norm_eps), cfg.activation, odin)
+    h = rmsnorm(x, p["ln2"], norm_eps)
+    if cfg.kind == "dense":
+        x = x + _mlp(p["mlp"], h, cfg.activation, odin)
+    else:
+        x = x + moe_block(p["moe"], h, cfg.moe, cfg.activation, no_drop=moe_no_drop,
+                          odin=odin)
     new_cache = None if cache is None else {**cache, "attn": ac}
     return x, new_cache

@@ -47,7 +47,10 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         std = 0.02 * spec.scale
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device)
-    return (x * std).to(spec.dtype)
+    # scaled in place: the float32 draw of a stacked expert weight is 26 GB
+    # at 8 of qwen3-moe's layers, and a scaled copy beside it and the model
+    # would not fit on one 80 GB card
+    return x.mul_(std).to(spec.dtype)
 
 
 def materialize(tree, generator: torch.Generator, device):

@@ -132,8 +132,11 @@ class ServingEngine:
         self.max_len = max_len
         self.block_size = block_size
         self.n_pages = max_len // block_size
-        # Default chunk is bounded so the prefill tile stays small on full
-        # configs; chunking never changes results.
+        # Default chunk is bounded: serving prefill routes MoE drop-free, so
+        # its expert dispatch buffer scales with the chunk's token count —
+        # an unbounded max_len default would pay [E, max_len, d] per layer on
+        # full configs.  Drop-free routing is chunk-invariant, so chunking
+        # never changes results.
         self.chunk = prefill_chunk or min(max_len, 512)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -41,16 +41,19 @@ def jax_params():
 
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
 def test_configs_are_the_reference_configs(which):
-    ours, theirs = getattr(tregistry, which)(ARCH), getattr(jregistry, which)(ARCH)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
-    assert tmodule.count_params(tlm.param_spec(ours)) == jmodule.count_params(
-        jlm.param_spec(theirs))
-    assert tlm.model_flops(ours, 7, train=False) == jlm.model_flops(theirs, 7, train=False)
+    for arch in (ARCH, "qwen3-moe-235b-a22b"):
+        ours, theirs = getattr(tregistry, which)(arch), getattr(jregistry, which)(arch)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert tmodule.count_params(tlm.param_spec(ours)) == jmodule.count_params(
+            jlm.param_spec(theirs))
+        assert tlm.model_flops(ours, 7, train=False) == jlm.model_flops(theirs, 7,
+                                                                        train=False)
+        assert tlm.model_flops(ours, 7) == jlm.model_flops(theirs, 7)
 
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_smoke("qwen3-moe-235b-a22b")
+        tregistry.get_smoke("hymba-1.5b")
 
 
 def _flat(tree):
@@ -144,3 +147,12 @@ def test_forward_prefill_then_decode_on_paged_caches(jax_params):
                                   np.asarray(jc[0]["attn"]["pos"]))
     np.testing.assert_allclose(tc[0]["attn"]["k_pool"].numpy(),
                                np.asarray(jc[0]["attn"]["k_pool"]), atol=1e-5)
+
+
+def test_moe_model_flops_count_active_params():
+    """qwen3-moe-235b-a22b: 235.09 B parameters, 22.19 B active a token
+    (8 of 128 routed experts), as the JAX package counts them."""
+    cfg = tregistry.get_config("qwen3-moe-235b-a22b")
+    total = tmodule.count_params(tlm.param_spec(cfg))
+    active = tlm.model_flops(cfg, 1, train=False) / 2
+    assert round(total / 1e9, 2) == 235.09 and round(active / 1e9, 2) == 22.19

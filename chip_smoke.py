@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    the page axis, then a combine pass) at the serving path's shapes (decode,
    and the speculative phase's 5-token verify tile, at phi4's 3 query heads
    a KV head and at qwen3-moe's 16, whose launch plan cuts a head's rows
-   into 4 and 20 chunks), one long slot, 64
+   into 4 and 20 chunks, and hymba's global layers' decode at G = 5, D = 64
+   over 1536-1600 tokens, 2 chunks of 3 rows), one long slot, 64
    slots that the plan does not split, and window and verify cases whose
    plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
@@ -69,7 +70,19 @@ Phases, each fatal on failure:
    request while the co-batched streams keep the fault-free run's; then a
    generated chaos plan with the degradation ladder on runs to completion
    with every request terminal;
-7. serve qwen3-moe-235b-a22b at every published width over 8 of its 94
+7. the dense KV cache: full-width phi4-mini with ``paged=False`` on the
+   serving phase's traffic (no ``paged_attention`` launch), and the static
+   loop (``serve_static``) on the same prompts, both held against the paged
+   run's streams (partings only at reported near ties);
+8. Hymba: hymba-1.5b's widths over 2 of its layers (one global, one
+   window) on the card equal to the CPU plain path (streams and logits,
+   float32); then hymba-1.5b at every width and all 32 layers (random bf16
+   weights): 8 prompts of 1536 tokens past the 1024-token window, 64 greedy
+   tokens, ``paged_attention`` launched once a decode-carrying forward by
+   each of the three global layers, held against ``paged=False``, a swap
+   pressure run and horizon 4; a decode profile with the SSM's and
+   ``paged_attn``'s shares; the per-token cost of the SSM scan at prefill;
+9. serve qwen3-moe-235b-a22b at every published width over 8 of its 94
    layers (random bf16 weights, the router float32): the serving phase's 8
    prompts of 512 tokens with 32 greedy tokens (mixed dispatch, prefix
    sharing), 16 with mixed dispatch off held against them, n-gram
@@ -77,14 +90,14 @@ Phases, each fatal on failure:
    spec-off run, every decode-carrying forward launching
    ``paged_attention`` once per layer; then a decode profile with the
    expert products' and ``paged_attn``'s shares of the device time;
-8. run the paper's experiment at full width (``launch/odin_inference``):
+10. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-9. run the kernel bench entry point (``launch/kernel_bench``), the path of
+11. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -93,8 +106,9 @@ than one path, the count of each.
 
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
-odin_linear,serve_sc,serve_spec,frontdoor,serve_moe`` (any subset) runs only those
-checks, for a focused call, and prints no kernels line.
+odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
+serve_hybrid`` (any subset) runs only those checks, for a focused call, and
+prints no kernels line.
 """
 from __future__ import annotations
 
@@ -345,9 +359,15 @@ def check_paged_attn():
                   seed=10),
         attn_case("verify_q5_qwen3_g16_bf16", Q=5, H=64, Hkv=4, lengths=(512, 576),
                   copies=8, seed=11),
+        # hymba-1.5b's global layers at the hybrid serving phase's decode: 25
+        # query heads over 5 KV heads (G = 5) of 64, 8 slots of 1536-1600
+        # tokens in 100 pages of 16
+        attn_case("decode_hymba_g5_d64_bf16", H=25, Hkv=5, D=64, P=100,
+                  lengths=(1536, 1600), copies=8, seed=12),
     ]
     # row chunks of the launch plan, each re-reading its split's pages
-    expect_chunks = {"decode_qwen3_g16_bf16": 4, "verify_q5_qwen3_g16_bf16": 20}
+    expect_chunks = {"decode_qwen3_g16_bf16": 4, "verify_q5_qwen3_g16_bf16": 20,
+                     "decode_hymba_g5_d64_bf16": 2}
     # cases whose plan must leave CTAs with no visible key (exact empty partials)
     need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
     lines = {}
@@ -572,10 +592,13 @@ class counting:
     def check(self, cfg):
         """Every forward that carried a decode row, a mixed tile, a verify
         tile or a one-token prefill chunk launched ``paged_attention`` once
-        per layer."""
-        if self.launches <= 0 or self.launches != cfg.n_layers * self.forwards:
+        per layer on the paged pool: every layer of a fully paged model,
+        Hymba's global layers, none with ``paged=False``."""
+        from repro_torch.launch.steps import pageable_block
+        n = sum(b.n_layers for b in cfg.blocks if pageable_block(b)) if self.eng.paged else 0
+        if (n and self.launches <= 0) or self.launches != n * self.forwards:
             raise AssertionError(f"paged_attention launches {self.launches} != "
-                                 f"{cfg.n_layers} x {self.forwards} forwards")
+                                 f"{n} paged layers x {self.forwards} forwards")
         if sum(self.by_q.values()) != self.launches:
             raise AssertionError(f"launches by query length {self.by_q} do not add up "
                                  f"to {self.launches}")
@@ -718,7 +741,7 @@ def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
     if t is None:
         return
     ctx = torch.as_tensor(np.concatenate([prompt, np.asarray(a[:t], np.int32)]),
-                          device="cuda")[None]
+                          device=params["embed"].device)[None]
     with torch.no_grad():
         logits = lm.forward(params, ctx, cfg, moe_no_drop=True)[0][0, -1].float()
     top = torch.topk(logits, 2)
@@ -733,7 +756,7 @@ def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
                              f"without a near tie: {report}")
 
 
-def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
+def profile_decode(params, cfg, prompts, *, block=4, max_new=32, max_len=1024,
                    label="decode profile (8 slots, 4 steps each block)", op_shares=None):
     """Plain decode steps of the full-width engine, one slot a prompt: after
     ``block`` warm-up steps, ``block`` timed without the profiler, ``block``
@@ -743,13 +766,15 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
     divides them by the mean wall time of the unprofiled steps around them,
     same engine and batch.  ``op_shares`` maps a label to a predicate on the
     profiler's operator rows (grouped by input shape): the device time of
-    the kernels those operators launched is reported a step and as a share."""
+    the kernels those operators launched is reported a step and as a share
+    (a ``record_function`` range's row counts the kernels of every operator
+    inside it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Request, ServingEngine
     slots = len(prompts)
-    eng = ServingEngine(cfg, slots=slots, max_len=1024, block_size=16,
+    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16,
                         prefill_chunk=256, params=params, mixed=False)
     for i in range(slots):
         eng.submit(Request(rid=i, prompt=prompts[i], max_new=max_new))
@@ -787,7 +812,7 @@ def profile_decode(params, cfg, prompts, *, block=4, max_new=32,
         raise AssertionError("decode profile: the profiler recorded no device time")
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    name = f"profile_decode_{cfg.odin_mode}.txt"
+    name = f"profile_decode_{cfg.name}_{cfg.odin_mode}.txt"
     with open(os.path.join(HERE, "build", name), "w") as fh:
         fh.write(events.table(sort_by="self_cuda_time_total", row_limit=40))
     report = {
@@ -1920,16 +1945,285 @@ def guarded_faults(cfg, params, rng):
     return {"guarded_nan": hit["launches"], "chaos": c["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 7-8: the dense KV cache with the static loop, and Hymba
+# ---------------------------------------------------------------------------
+
+def serve_dense(cfg, params, prompts, exact_streams):
+    """Full-width phi4-mini on the dense live cache: the serving phase's 8
+    prompts of 512 tokens with 64 greedy tokens through the engine with
+    ``paged=False`` (every layer on dense per-slot K/V rows and plain sdpa,
+    no ``paged_attention`` launch), then the same prompts through the static
+    loop (``serve_static``: one prefill, 64 lockstep decode steps on dense
+    caches); both held against the paged run's streams (``exact_streams``)
+    with partings only at reported near ties.  Returns each run's
+    ``paged_attention`` launches (0)."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.serve import _batch_requests, serve_static
+
+    r = serve(cfg, params, prompts, 64, paged=False)
+    s = r["summary"]
+    n_dense = compare_streams(params, cfg, prompts, exact_streams, r["streams"],
+                              "paged=False vs the paged run")
+    static_prompts = [q.prompt for q in _batch_requests(cfg, len(prompts), 512, 64, 0)]
+    if not all(np.array_equal(a, b) for a, b in zip(static_prompts, prompts)):
+        raise AssertionError("serve_static's prompts are not the serving phase's")
+    paged_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    generated, static_tps = serve_static(cfg, batch=len(prompts), prompt_len=512, gen=64,
+                                         seed=0, params=params, verbose=False)
+    static_wall = time.perf_counter() - t
+    static_launches = paged_attention.launches
+    if static_launches:
+        raise AssertionError(f"the static loop launched paged_attention {static_launches}x")
+    if not ((generated >= 0) & (generated < cfg.vocab)).all():
+        raise AssertionError("serve_static: token out of range")
+    static = {i: [int(x) for x in row] for i, row in enumerate(generated)}
+    n_static = compare_streams(params, cfg, prompts, exact_streams, static,
+                               "serve_static vs the paged engine run")
+    log("dense-cache serving:", json.dumps({
+        "requests": len(prompts), "prompt": 512, "generated": 64,
+        "engine": {"paged": False, "wall_s": r["wall"],
+                   "decode_tokens_per_s": s["decode_tokens_per_s"], "ttft_s": s["ttft_s"],
+                   "kv_cache_bytes": s["kv_cache_bytes"], "peak_memory_gb": r["peak"] / 1e9,
+                   "mixed_dispatches": s["mixed"]["dispatches"],
+                   "paged_attn_launches": r["launches"],
+                   "streams_equal_to_paged_run": n_dense},
+        "static": {"wall_s": static_wall, "decode_tokens_per_s": static_tps,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "paged_attn_launches": static_launches,
+                   "streams_equal_to_paged_run": n_static}}))
+    return {"serve_dense": r["launches"], "serve_static": static_launches}
+
+
+HYMBA_ARCH = "hymba-1.5b"
+
+
+def hymba_card_vs_cpu():
+    """hymba-1.5b at every published width (d_model 1600, 25 query heads over
+    5 KV heads of 64, SSM state 16, d_ff 5504, vocab 32,001) over 2 of its 32
+    layers, its first (global) layer and one sliding-window layer, float32
+    weights from a seeded generator: the engine's greedy streams on the card
+    (``paged_attn`` at G = 5, D = 64 for the global layer, launched once a
+    decode-carrying forward; the ring and the SSM in plain PyTorch on the
+    card) equal those on the CPU (plain path), and so do the logits of a
+    prefill and 3 decode steps on serving caches, within atol/rtol 1e-4 (the
+    CPU tests' bound: float32 sums in another order).  Returns the card
+    run's launches."""
+    import dataclasses
+
+    from repro_torch.launch.steps import init_serving_caches
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import materialize
+    from repro_torch.serving import ServingEngine, WorkloadSpec, make_requests
+    from repro_torch.tree import tree_map
+
+    full = registry.get_config(HYMBA_ARCH)
+    cfg = full.with_overrides(kv_dtype="float32", blocks=(
+        full.blocks[0], dataclasses.replace(full.blocks[1], n_layers=1)))
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: t.float(), materialize(lm.param_spec(cfg), gen, "cpu"))
+    spec = WorkloadSpec(n_requests=5, rate=1e9, prompt_buckets=(24, 40), gen_buckets=(8, 20))
+    streams, logits = {}, {}
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 40), dtype=np.int32))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(3, 2, 1), dtype=np.int32))
+    tables = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        eng = ServingEngine(cfg, slots=3, max_len=64, block_size=16, params=p,
+                            device=dev, prefill_chunk=16)
+        reqs = make_requests(cfg, spec, seed=1)
+        if dev == "cuda":
+            with counting(eng) as c:
+                eng.run(reqs)
+            c.check(cfg)
+        else:
+            eng.run(reqs)
+        streams[dev] = {r.rid: [int(np.ravel(t)[0]) for t in r.generated] for r in reqs}
+        caches = init_serving_caches(cfg, 2, 64, window_headroom=16, round_to=16,
+                                     block_size=16, n_blocks=8, device=dev)
+        out, caches, _ = lm.forward(p, prompt.to(dev), cfg, caches=caches,
+                                    tables=tables.to(dev))
+        outs = [out[:, -1]]
+        for i in range(3):
+            start = torch.full((2, 1), 40 + i, dtype=torch.int32, device=dev)
+            out, caches, _ = lm.forward(p, toks[i].to(dev), cfg, caches=caches,
+                                        start_pos=start, tables=tables.to(dev))
+            outs.append(out[:, -1])
+        logits[dev] = torch.stack(outs).cpu()
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(f"hymba 2 layers: card {streams['cuda']} != "
+                             f"cpu {streams['cpu']}")
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    bound = 1e-4 + 1e-4 * logits["cpu"].abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"hymba 2 layers: card logits off the CPU's by "
+                             f"{err.max():.3e}")
+    line = {"layers": "1 global + 1 window of 32", "dtype": "float32",
+            "streams_equal": True, "tokens": sum(len(s) for s in streams["cuda"].values()),
+            "logits_max_abs_err": err.max().item(), "forwards_through_kernel": c.forwards,
+            "paged_attn_launches": c.launches}
+    log("hymba card vs cpu:", json.dumps(line))
+    return c.launches
+
+
+def load_hymba():
+    """hymba-1.5b at every published width and all 32 layers, random bf16
+    weights (the SSM's A_log, D, dt_bias and the fusion's mix_beta float32)
+    from a seeded generator on the card, and eight 1536-token prompts."""
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+
+    cfg = registry.get_config(HYMBA_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = materialize(lm.param_spec(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    log(f"{HYMBA_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.2f} GB in bf16), all "
+        f"{cfg.n_layers} layers, materialized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, cfg.vocab, size=(HYMBA_PROMPTS, 1536), dtype=np.int32))
+    return cfg, params, prompts
+
+
+HYMBA_PROMPTS = 8
+
+
+class ssm_ranges:
+    """Wraps every ``ssm_block`` call of the Hymba blocks in a profiler range
+    named ``ssm_block`` (chip_smoke's instrumentation; the port has none)."""
+
+    def __enter__(self):
+        from repro_torch.nn import blocks
+        self._fn = fn = blocks.ssm_block
+
+        def ranged(*a, **k):
+            with torch.profiler.record_function("ssm_block"):
+                return fn(*a, **k)
+        blocks.ssm_block = ranged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.nn import blocks
+        blocks.ssm_block = self._fn
+        return False
+
+
+def ssm_prefill_cost(cfg, params):
+    """Wall time of one layer's ``ssm_block`` over a 256-token prefill chunk
+    on the card (one slot, bf16, from a zero state), and the device
+    operations it launches: the per-token scan's host cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn.ssm import init_ssm_state, ssm_block
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda a: a[0], params["segments"][1]["ssm"])
+    b = cfg.blocks[1]
+    x = (torch.randn((1, 256, cfg.d_model), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3)) * 0.5
+         ).to(torch.bfloat16)
+    state = init_ssm_state(b.ssm, cfg.d_model, 1, device="cuda")
+    ssm_block(p, x, b.ssm, state=state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        ssm_block(p, x, b.ssm, state=state)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssm_block(p, x, b.ssm, state=state)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0) for e in kernels)
+    ops = sum(e.count for e in kernels)
+    return {"ssm_block_wall_ms_per_layer_chunk": wall * 1e3,
+            "ssm_block_device_ms_per_layer_chunk": dev_us / 1e3,
+            "ssm_block_device_ops_per_layer_chunk": ops,
+            "ssm_device_ops_per_token_per_layer": ops / 256,
+            "ssm_wall_ms_per_chunk_all_layers": wall * 1e3 * cfg.n_layers}
+
+
+def serve_hybrid(cfg, params, prompts):
+    """hymba-1.5b served at full width and full depth through the port's
+    engine on the card: 8 prompts of 1536 tokens (past the 1024-token window,
+    so the rings of 1024 + 256 rows wrap) with 64 greedy tokens, max_len 2048,
+    block 16, chunk 256 (mixed dispatch and prefix sharing off by themselves).
+    The three global layers run on the paged pool and launch
+    ``paged_attention`` once each a decode-carrying forward (G = 5, D = 64);
+    the window layers' rings and the SSM run plain PyTorch on the card.  The
+    streams are held against the same traffic with ``paged=False`` (the
+    global layers on dense caches and plain sdpa, no launch), under swap
+    pressure (a pool of 485 blocks, which admits 5 prompts of 97 blocks and
+    then cannot grow them, with a 320-block swap tier) and at horizon 4,
+    a parting accepted only at a reported near tie.  Then a decode profile
+    (device busy share, the SSM's and ``paged_attn``'s shares) and the
+    per-token cost of the SSM scan at prefill.  Returns each run's launches."""
+    a = serve(cfg, params, prompts, 64, max_len=2048, timed=True)
+    s1 = a["summary"]
+    chunk_ms = [t * 1e3 for t in a["times"]["_prefill"]]
+    line = {"arch": HYMBA_ARCH, "layers": cfg.n_layers, "requests": len(prompts),
+            "prompt": 1536, "generated": 64, "wall_s": a["wall"],
+            "decode_tokens_per_s": s1["decode_tokens_per_s"], "ttft_s": s1["ttft_s"],
+            "tpot_s": s1["tpot_s"], "prefill_time_s": s1["prefill_time_s"],
+            "prefill_tokens": s1["prefill_tokens"],
+            "prefill_chunk_wall_ms_median": float(np.median(chunk_ms)),
+            "mixed_dispatches": s1["mixed"]["dispatches"],
+            "decode_dispatches": s1["decode_dispatches"],
+            "forwards_through_kernel": a["forwards"], "paged_attn_launches": a["launches"],
+            "launches_per_forward": a["launches"] / a["forwards"],
+            "peak_memory_gb": a["peak"] / 1e9, "kv_cache_bytes": s1["kv_cache_bytes"]}
+    log("hybrid serving:", json.dumps(line))
+    runs = {"dense": serve(cfg, params, prompts, 64, max_len=2048, paged=False),
+            "swap": serve(cfg, params, prompts, 64, max_len=2048, n_blocks=485,
+                          swap_blocks=320),
+            "h4": serve(cfg, params, prompts, 64, max_len=2048, horizon=4)}
+    if runs["swap"]["summary"]["preemptions"]["swap"] <= 0:
+        raise AssertionError(f"hybrid swap run: no swap preemption "
+                             f"{runs['swap']['summary']['preemptions']}")
+    h4 = runs["h4"]["summary"]
+    if h4["decode_dispatches"] >= h4["decode_steps"]:
+        raise AssertionError("hybrid horizon 4: no dispatch ran more than one decode step")
+    for what, r in runs.items():
+        s = r["summary"]
+        n_equal = compare_streams(params, cfg, prompts, a["streams"], r["streams"],
+                                  f"hybrid {what} vs the default run")
+        log(f"hybrid serving ({what}):", json.dumps({
+            "wall_s": r["wall"], "streams_equal_to_default": n_equal,
+            "decode_tokens_per_s": s["decode_tokens_per_s"], "ttft_s": s["ttft_s"],
+            "preemptions": s["preemptions"], "decode_dispatches": s["decode_dispatches"],
+            "decode_steps": s["decode_steps"], "kv_cache_bytes": s["kv_cache_bytes"],
+            "forwards": r["forwards"], "paged_attn_launches": r["launches"],
+            "peak_memory_gb": r["peak"] / 1e9}))
+    with ssm_ranges():
+        profile_decode(params, cfg, prompts, max_len=2048,
+                       label="hybrid decode profile (8 slots, 4 steps each block)",
+                       op_shares={"ssm": lambda e: e.key == "ssm_block"})
+    cost = ssm_prefill_cost(cfg, params)
+    cost["prefill_chunk_wall_ms_median"] = line["prefill_chunk_wall_ms_median"]
+    cost["ssm_share_of_prefill_chunk"] = (cost["ssm_wall_ms_per_chunk_all_layers"]
+                                          / line["prefill_chunk_wall_ms_median"])
+    log("hybrid prefill, the SSM scan's cost:", json.dumps(cost))
+    return {"serve_hybrid": a["launches"], "serve_hybrid_dense": runs["dense"]["launches"],
+            "serve_hybrid_swap": runs["swap"]["launches"],
+            "serve_hybrid_h4": runs["h4"]["launches"]}
+
+
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
-            "frontdoor", "serve_moe")
+            "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid")
 
 
 def run_picked(picked, name, smi):
     """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
-    checked row counts it needs; ``serve_spec`` the spec-off run of the
-    serving traffic it is held against; ``serve_moe`` the small models'
-    card-vs-CPU check); no kernels line."""
+    checked row counts it needs; ``serve_spec`` and ``serve_dense`` the
+    paged run of the serving traffic they are held against; ``serve_moe``
+    the small models' card-vs-CPU check); no kernels line."""
     if "paged_attn" in picked:
         check_paged_attn()
     if "act_pool" in picked:
@@ -1938,19 +2232,27 @@ def run_picked(picked, name, smi):
         check_sc_mac()
     if "odin_linear" in picked or "serve_sc" in picked:
         _, rows = check_odin_linear_full_width()
-    if picked & {"serve_sc", "serve_spec", "frontdoor"}:
+    if picked & {"serve_sc", "serve_spec", "frontdoor", "serve_dense"}:
         cfg, params, prompts, _ = load_phi4()
     if "serve_sc" in picked:
         serve_odin_sc(cfg, params, prompts, rows)
-    if "serve_spec" in picked:
+    if picked & {"serve_spec", "serve_dense"}:
         base = serve(cfg, params, prompts, 64)
+    if "serve_spec" in picked:
         serve_spec(cfg, params, prompts, base["streams"],
                    base["summary"]["decode_tokens_per_s"])
+    if "serve_dense" in picked:
+        serve_dense(cfg, params, prompts, base["streams"])
     if "frontdoor" in picked:
         frontdoor(cfg, params, prompts)
-    if "serve_moe" in picked:
-        params = None                   # phi4's weights go before qwen3's load
+    params = None                       # phi4's weights go before another model's
+    free_device_memory()
+    if "hymba_card" in picked:
+        hymba_card_vs_cpu()
+    if "serve_hybrid" in picked:
+        serve_hybrid(*load_hymba())
         free_device_memory()
+    if "serve_moe" in picked:
         small_model_card_vs_cpu()
         serve_moe(*load_qwen3())
     log(smi)
@@ -2012,8 +2314,16 @@ def main(argv=None):
     odin = serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked)
     paged_launches.update(serve_int8=odin["int8"]["launches"], serve_sc=odin["sc"]["launches"])
     paged_launches.update(guarded_faults(cfg, params, rng))
+    paged_launches.update(serve_dense(cfg, params, prompts, exact_streams))
     del params
     free_device_memory()
+    t_hybrid = time.perf_counter()
+    paged_launches["hymba_card_vs_cpu"] = hymba_card_vs_cpu()
+    hymba_cfg, hymba_params, hymba_prompts = load_hymba()
+    paged_launches.update(serve_hybrid(hymba_cfg, hymba_params, hymba_prompts))
+    del hymba_params
+    free_device_memory()
+    log(f"hymba phases: {time.perf_counter() - t_hybrid:.1f} s")
     t_moe = time.perf_counter()
     moe_cfg, moe_params, moe_prompts = load_qwen3()
     moe_launches, moe_by_q = serve_moe(moe_cfg, moe_params, moe_prompts)

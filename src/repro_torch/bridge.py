@@ -6,10 +6,13 @@ or the arrays of a ``checkpoint/ckpt.py`` ``arrays.npz`` put back into the
 tree — and returns the port's tree: the same dict/list structure and keys,
 the same stacked ``[L, ...]`` segment leaves, as tensors on ``device``.
 
-numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
-rejects: they cross as their uint16 bit patterns and are viewed back as
-``torch.bfloat16``, bit for bit (the same trick ``ckpt.py`` uses to store
-them).
+Every leaf keeps the dtype the JAX spec gave it: bf16 weights stay bf16,
+and the float32 leaves (norms, the MoE router, the SSM's ``A_log``, ``D``
+and ``dt_bias``, Hymba's ``mix_beta``) stay float32, unless ``dtype`` casts
+every floating leaf.  numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` rejects: they cross as their uint16 bit patterns
+and are viewed back as ``torch.bfloat16``, bit for bit (the same trick
+``ckpt.py`` uses to store them).
 
 ``luts_from_numpy(lut_a, lut_w, selects, device)`` carries the JAX package's
 SC tables (``core/odin_linear.py get_luts``, uint32 words) across as the

@@ -15,23 +15,35 @@ Usage:
   # the engine as a streaming HTTP front door (SSE, 429 on overload):
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu \\
       --listen --port 8080 --max-queue 32 --tenant-rate 50
+  # Hymba (sliding-window rings + SSM state, global layers on the pool):
+  python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
+  # the static-batch loop over dense caches (the engine's parity baseline):
+  python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu --static
 
-The static loop (``--static``) runs on the dense KV cache, which is not
-ported yet, and exits with an error.
+``serve`` runs each prompt as a request through the engine; ``serve_static``
+is the one-shot static-batch loop (one prefill, ``gen`` lockstep decode
+steps on dense caches), the baseline the engine is held against.  Both
+take the same numpy prompts for a seed, so their greedy tokens agree
+where no preemption happens.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import time
 
 import numpy as np
+import torch
 
-from repro_torch.models import registry
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import lm, registry
+from repro_torch.nn.module import materialize
 from repro_torch.serving import (SCENARIOS, FaultPlan, ReliabilityConfig,
                                  Request, ServingEngine, Tracer, make_requests)
 
-__all__ = ["serve", "serve_listen", "main"]
+__all__ = ["serve", "serve_static", "serve_listen", "main"]
 
 
 def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
@@ -39,6 +51,41 @@ def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)
     return [Request(rid=i, prompt=toks[i], max_new=gen) for i in range(batch)]
+
+
+def serve_static(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
+                 params=None, verbose: bool = True, device=None):
+    """The static-batch loop: one prefill of the ``batch`` prompts of
+    ``_batch_requests`` into fresh dense caches, then ``gen`` lockstep decode
+    steps; every slot runs to the end.  ``params=None`` draws the weights the
+    engine draws for ``seed``.  Returns (generated [B, gen] int32 numpy
+    array, decode tokens/s)."""
+    dev = resolve_device(device)
+    if params is None:
+        gen_ = torch.Generator(device=dev).manual_seed(seed)
+        params = materialize(lm.param_spec(cfg), gen_, dev)
+    prompts = np.stack([r.prompt for r in _batch_requests(cfg, batch, prompt_len, gen,
+                                                          seed)])
+    prefill = make_prefill_step(cfg, max_len=prompt_len + gen)
+    decode = make_decode_step(cfg)
+    t0 = time.perf_counter()
+    last, caches = prefill(params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    outs = []
+    t1 = time.perf_counter()
+    for _ in range(gen):
+        outs.append(tok)
+        tok, caches = decode(params, caches, tok)
+    generated = torch.cat(outs, dim=-1).cpu().numpy()              # syncs
+    t2 = time.perf_counter()
+    tps = batch * gen / max(t2 - t1, 1e-9)
+    if verbose:
+        print(f"[serve] static prefill {batch}x{prompt_len} on {dev} in "
+              f"{(t1 - t0) * 1e3:.0f} ms; decode {gen} steps in "
+              f"{(t2 - t1) * 1e3:.0f} ms  ({tps:.1f} tok/s)")
+    return generated, tps
 
 
 def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -118,8 +165,14 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--static", action="store_true",
+                    help="run the static-batch loop (dense caches) instead of "
+                         "the engine")
     ap.add_argument("--odin-mode", choices=["exact", "int8", "sc"], default=None,
                     help="execution mode for Linear layers (default: config's)")
+    ap.add_argument("--no-paged", action="store_true",
+                    help="keep the dense [slots, max_len] live caches instead "
+                         "of the paged physical block store")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable shared-prompt block dedup")
     ap.add_argument("--no-mixed", action="store_true",
@@ -185,13 +238,10 @@ def main(argv=None):
                     help="per-tenant bucket burst (default: --tenant-rate)")
     ap.add_argument("--heartbeat-ms", type=float, default=None,
                     help="idle-stream heartbeat period")
-    # the JAX package's static loop runs on the dense KV cache, not ported yet
-    ap.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.static:
-        ap.error("--static is not yet ported: the static loop needs the dense "
-                 "KV cache (see ROADMAP.md §1, the dense KV cache and the "
-                 "other cache families)")
+    if args.static and (args.listen or args.scenario or args.trace_out):
+        ap.error("--static runs the static loop alone (no --listen, --scenario "
+                 "or --trace-out)")
     if args.fault_plan and not args.scenario:
         ap.error("--fault-plan requires --scenario (fault injection is bench/"
                  "test-mode only)")
@@ -209,7 +259,7 @@ def main(argv=None):
     tracer = Tracer(capacity=args.trace_capacity) if args.trace_out else None
     engine_kw = dict(
         device=args.device, odin_mode=args.odin_mode, n_blocks=args.kv_blocks,
-        swap_blocks=args.swap_blocks,
+        swap_blocks=args.swap_blocks, paged=not args.no_paged,
         prefill_chunk=args.chunk,
         prefix_sharing=False if args.no_prefix_sharing else None,
         mixed=False if args.no_mixed else None, mixed_budget=args.mixed_budget,
@@ -246,6 +296,12 @@ def main(argv=None):
         summary = engine.run(make_requests(cfg, spec, seed=args.seed))
         print(json.dumps({k: v for k, v in summary.items() if k != "requests"},
                          indent=2, allow_nan=False))
+    elif args.static:
+        if args.odin_mode is not None:
+            cfg = cfg.with_overrides(odin_mode=args.odin_mode)
+        generated, _ = serve_static(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                                    gen=args.gen, seed=args.seed, device=args.device)
+        print("[serve] first request tokens:", generated[0].ravel()[:16])
     else:
         generated, _ = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                              gen=args.gen, seed=args.seed, slots=args.slots,

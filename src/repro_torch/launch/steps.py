@@ -1,6 +1,8 @@
-"""Continuous-batching serving steps over the paged KV pool.
+"""Serving steps: the static loop and continuous batching.
 
-The serving subset of the JAX package's ``launch/steps.py``: slot prefill,
+The serving subset of the JAX package's ``launch/steps.py``: the static
+loop's prefill and decode over dense caches, and the continuous-batching
+steps over the paged KV pool and the dense per-slot caches — slot prefill,
 activity-masked decode, the guarded decode with its NaN verdict, the fused
 mixed prefill+decode tile, the decode horizon and n-gram self-speculative
 decode.  Each ``make_*`` returns a plain function that runs eagerly on the
@@ -9,10 +11,12 @@ stays on the device (one host sync per horizon, taken by the engine).
 
 Every forward here routes MoE blocks drop-free (``moe_no_drop=True``), as
 the JAX steps do: a token's experts never depend on what shares its batch.
-Pool leaves are updated in place; ``pos`` leaves are recomputed and merged
-with the activity mask, as the JAX steps merge their functional caches.
-Sampling draws from a ``torch.Generator`` seeded per dispatch, so sampled
-streams are deterministic for a seed but differ from ``jax.random``'s.
+Pool leaves are updated in place; every per-slot leaf (``pos``, dense K/V
+rows, recurrent state) comes out of the forward as a new tensor and is
+merged with the activity mask, as the JAX steps merge their functional
+caches.  Sampling draws from a ``torch.Generator`` seeded per dispatch, so
+sampled streams are deterministic for a seed but differ from
+``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from repro_torch.nn.attention import POOL_LEAVES, init_paged_cache
 from repro_torch.tree import leaves_with_path, map_with_name
 
 __all__ = [
+    "make_prefill_step",
+    "make_decode_step",
     "pageable_block",
     "init_serving_caches",
     "make_slot_prefill_step",
@@ -38,13 +44,6 @@ __all__ = [
     "make_serving_spec_horizon",
 ]
 
-_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-              "float16": torch.float16, "int8": torch.int8}
-
-
-def kv_dtype(cfg: ModelConfig) -> torch.dtype:
-    return _KV_DTYPES[cfg.kv_dtype]
-
 
 def pageable_block(b: BlockConfig) -> bool:
     """Whether a segment's attention cache can use the paged block pool
@@ -52,6 +51,63 @@ def pageable_block(b: BlockConfig) -> bool:
     return (b.kind in ("dense", "moe", "hymba") and b.attn is not None
             and b.attn.kind == "gqa" and b.attn.window == 0)
 
+
+# ---------------------------------------------------------------------------
+# the static loop (dense caches, every row in lockstep)
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
+    """(params, batch) → (last_logits [B,V], caches): fresh dense caches of
+    ``max_len`` rows (scalar ``pos``; a ring of exactly ``window`` rows for
+    a windowed layer) filled by one forward over ``batch["tokens"] [B,S]``."""
+
+    def prefill_step(params, batch):
+        tokens = batch["tokens"]
+        caches = lm.init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def _cache_start(caches):
+    """Absolute position of the incoming token(s), from the attention ``pos``
+    leaf: every attention layer advances in lockstep, so the first segment's
+    layer 0 speaks for all.  A scalar (static batch), a [B] vector (serving
+    caches), or None (no attention layer)."""
+    for seg in caches:
+        if isinstance(seg, dict) and "attn" in seg and "pos" in seg["attn"]:
+            return seg["attn"]["pos"][0]
+    return None
+
+
+def _argmax_tokens(logits):
+    """Greedy next tokens [B, 1] int32 from the last row of ``logits``."""
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """(params, caches, tokens [B,1], tables=None) → (next_tokens [B,1], caches).
+
+    The query position comes from the caches' ``pos`` leaf: without it the
+    token would run at position 0, with the wrong RoPE phase and a causal
+    mask hiding every cached row but the first.  ``tables`` matter only for
+    caches that hold the paged pool."""
+
+    def decode_step(params, caches, tokens, tables=None):
+        start = _cache_start(caches)
+        if start is not None and start.ndim:
+            start = start[:, None]
+        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
+                                       start_pos=start, tables=tables)
+        return _argmax_tokens(logits), caches
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving steps
+# ---------------------------------------------------------------------------
 
 def _pool_trash_block(caches) -> Optional[int]:
     """Index of the write-off block of the paged pool (None ⇒ no paged leaves)."""
@@ -62,27 +118,54 @@ def _pool_trash_block(caches) -> Optional[int]:
 
 
 def init_serving_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                        window_headroom: int = 0, round_to: int = 1,
                         block_size: int = 16, n_blocks: int = 0, device=None):
-    """Stacked serving caches: the physical block pool
-    ``k_pool/v_pool [L, n_blocks+1, block_size, H_kv, D]`` per segment plus a
-    per-slot ``pos [L, batch]`` vector.  Every segment must be pageable."""
+    """Stacked serving caches with *per-slot* position vectors.
+
+    ``lm.init_caches`` except that
+
+    * every ``pos`` leaf is a per-slot ``[L, batch]`` vector, so each slot
+      keeps its own length (the attention layer takes the per-slot write
+      path and masks per slot); every per-slot leaf then has the slot axis
+      at position 1;
+    * with ``n_blocks > 0``, pageable segments (``pageable_block``) hold the
+      physical block pool ``k_pool/v_pool [L, n_blocks+1, block_size, H_kv,
+      D]`` instead of a dense ``[batch, max_len]`` cache; the other segments
+      keep theirs;
+    * ring buffers get ``window_headroom`` extra rows (rounded up to
+      ``round_to``, at most ``max_len``): a prefill chunk of C tokens through
+      a ring of exactly ``window`` rows would overwrite keys its own early
+      queries still need, and ``window + C`` rows keep every key until the
+      last query that may see it has run, which makes chunked prefill exact.
+    """
     if dtype is None:
-        dtype = kv_dtype(cfg)
-    if n_blocks <= 0 or not all(pageable_block(b) for b in cfg.blocks):
-        raise NotImplementedError(
-            "only fully paged serving caches (non-windowed GQA, n_blocks > 0) "
-            "are ported (see ROADMAP.md)")
-    caches = lm.init_caches(cfg, lambda b: init_paged_cache(
-        b.attn, n_blocks, block_size, dtype, device))
-    return map_with_name(
-        lambda name, leaf: (torch.zeros((*leaf.shape, batch), dtype=torch.int32,
-                                        device=leaf.device)
-                            if name == "pos" else leaf), caches)
+        dtype = lm.kv_dtype(cfg)
+    override = None
+    if n_blocks:
+        override = lambda b: (init_paged_cache(b.attn, n_blocks, block_size, dtype, device)
+                              if pageable_block(b) else None)
+    caches = lm.init_caches(cfg, batch, max_len, dtype, attn_override=override,
+                            device=device)
+
+    def fix(name, leaf):
+        if name == "pos":
+            return torch.zeros((*leaf.shape, batch), dtype=torch.int32, device=leaf.device)
+        if window_headroom and name in ("k", "v") and leaf.shape[2] < max_len:
+            size = leaf.shape[2] + window_headroom
+            size = min(max_len, -(-size // round_to) * round_to)
+            if size > leaf.shape[2]:
+                pad = [0, 0] * (leaf.ndim - 3) + [0, size - leaf.shape[2]]
+                return torch.nn.functional.pad(leaf, pad)
+        return leaf
+
+    return map_with_name(fix, caches)
 
 
 def _merge(active, caches, new_caches):
     """Per-slot leaves keep their old value on inactive slots; pool leaves
-    were written in place (inactive writes went to the write-off block)."""
+    were written in place (inactive writes went to the write-off block).
+    Dense K/V rows and recurrent state come out of the forward as new
+    tensors, so the old ones are still there to keep."""
     def merge(name, old, new):
         if name in POOL_LEAVES:
             return new
@@ -92,29 +175,50 @@ def _merge(active, caches, new_caches):
     return map_with_name(merge, caches, new_caches)
 
 
-def make_slot_prefill_step(cfg: ModelConfig) -> Callable:
+def _redirect(tables, active, trash):
+    """Inactive slots' tables point at the pool's write-off block (tables
+    pass unchanged when the caches hold no pool)."""
+    if tables is None or trash is None:
+        return tables
+    return torch.where(active[:, None], tables, trash)
+
+
+def make_slot_prefill_step(cfg: ModelConfig, max_len: int, window_headroom: int = 0,
+                           round_to: int = 1, block_size: int = 16,
+                           paged: bool = True) -> Callable:
     """Chunked prefill of ONE batch slot of a serving cache.
 
     (params, caches, tokens [1,C], slot, start, reset, tables [B,P])
         → (last_logits [1,V], caches)
 
     Pool leaves pass whole and the chunk's K/V rows go straight into the
-    slot's blocks; the slot's ``pos`` is sliced out, reset to ``start`` when
-    ``reset`` (a fresh or mid-sequence admission behind a shared prefix),
-    advanced by the forward and written back.
+    slot's blocks (``paged``; ``tables`` is ignored otherwise).  The slot's
+    per-slot leaves are sliced out, run through the forward at positions
+    ``[start, start+C)`` and written back.  ``reset`` (a fresh admission, or
+    a mid-sequence one behind a shared prefix) first restores them to their
+    true initial state, that of ``init_serving_caches`` for one slot: zero
+    K/V rows and recurrent state, and ``pos = start``.
     """
+    init_kw = dict(window_headroom=window_headroom, round_to=round_to,
+                   block_size=block_size, n_blocks=1 if paged else 0)
 
     def prefill_chunk(params, caches, tokens, slot: int, start: int, reset: bool,
                       tables):
-        def slice_slot(name, leaf):
+        def slice_slot(name, leaf, fresh=None):
             if name in POOL_LEAVES:
                 return leaf
-            s = leaf[:, slot:slot + 1]
-            return torch.full_like(s, start) if reset else s
+            if fresh is None:
+                return leaf[:, slot:slot + 1]
+            return fresh + start if name == "pos" else fresh
 
-        sl = map_with_name(slice_slot, caches)
+        if reset:
+            fresh = init_serving_caches(cfg, 1, max_len, device=tokens.device, **init_kw)
+            sl = map_with_name(slice_slot, caches, fresh)
+        else:
+            sl = map_with_name(slice_slot, caches)
         logits, sl, _ = lm.forward(params, tokens, cfg, caches=sl, start_pos=start,
-                                   moe_no_drop=True, tables=tables[slot:slot + 1])
+                                   moe_no_drop=True,
+                                   tables=tables[slot:slot + 1] if paged else None)
         for (_, name, leaf), (_, _, new) in zip(leaves_with_path(caches),
                                                 leaves_with_path(sl)):
             if name not in POOL_LEAVES:
@@ -148,8 +252,7 @@ def _decode_forward(params, caches, tokens, lengths, active, tables, cfg: ModelC
     """The activity-masked decode forward over all slots: inactive slots'
     tables point at the write-off block and their per-slot leaves keep their
     values.  Returns (logits, caches)."""
-    trash = _pool_trash_block(caches)
-    tables = torch.where(active[:, None], tables, trash)
+    tables = _redirect(tables, active, _pool_trash_block(caches))
     logits, new_caches, _ = lm.forward(params, tokens, cfg, caches=caches,
                                        start_pos=lengths[:, None], moe_no_drop=True,
                                        tables=tables)
@@ -229,10 +332,9 @@ def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
 
     def mixed_step(params, caches, tokens, lengths, q_lens, decode, active,
                    tables, generator=None, temperature: float = 0.0):
-        trash = _pool_trash_block(caches)
         Q = tokens.shape[-1]
         q_lens = torch.where(active, q_lens, 0)
-        tabs = torch.where(active[:, None], tables, trash)
+        tabs = _redirect(tables, active, _pool_trash_block(caches))
         # row 0 of the tile sits q_lens-Q rows before the slot's next
         # position (pad rows get earlier, possibly negative, positions)
         start = (lengths + q_lens - Q)[:, None]
@@ -376,7 +478,7 @@ def make_serving_spec_horizon(cfg: ModelConfig, H: int, K: int,
         tok, act, rem = tokens, active, remaining
         for _ in range(H):
             draft = ngram_propose(hist, K, n)                       # [B, K]
-            tabs = torch.where(act[:, None], tables, trash)
+            tabs = _redirect(tables, act, trash)
             tin = torch.cat([tok, draft], dim=1)                    # [B, K+1]
             logits, new_caches, _ = lm.forward(
                 params, tin, cfg, caches=caches, start_pos=lengths[:, None],

@@ -1,4 +1,4 @@
-"""Decoder LM over stacked layer segments (dense and MoE GQA stacks).
+"""Decoder LM over stacked layer segments (dense, MoE and Hymba stacks).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
 package; a Python loop over the layers takes the place of its ``lax.scan``
@@ -13,12 +13,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.attention import POOL_LEAVES
-from repro_torch.nn.blocks import block_apply, block_spec
+from repro_torch.nn.blocks import block_apply, block_cache, block_spec
 from repro_torch.nn.layers import embed, embed_spec, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec, count_params
 from repro_torch.tree import tree_map
 
-__all__ = ["param_spec", "forward", "init_caches", "model_flops"]
+__all__ = ["param_spec", "forward", "init_caches", "kv_dtype", "model_flops"]
+
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "float16": torch.float16, "int8": torch.int8}
+
+
+def kv_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The decode caches' element type (``cfg.kv_dtype``)."""
+    return _KV_DTYPES[cfg.kv_dtype]
 
 
 def _stack(tree, n: int):
@@ -117,18 +125,21 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
     return logits, (new_caches if caches is not None else None), hidden
 
 
-def init_caches(cfg: ModelConfig, attn_override):
-    """Stacked per-segment decode caches.  ``attn_override(block_cfg)``
-    returns one layer's attention cache (the serving layer passes the paged
-    block pool); the dense caches of the JAX package are not ported."""
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                attn_override=None, device=None):
+    """Stacked per-segment decode caches (``dtype`` defaults to the config's
+    ``kv_dtype``): dense or ring-buffer attention caches with a scalar
+    ``pos``, and a Hymba segment's SSM state.  ``attn_override(block_cfg)``
+    returns a segment's attention cache instead (the serving layer passes
+    the paged block pool) or None to keep the dense one; an overridden
+    dense cache is never built."""
+    if dtype is None:
+        dtype = kv_dtype(cfg)
     out = []
     for b in cfg.blocks:
-        sub = attn_override(b)
-        if sub is None:
-            raise NotImplementedError(
-                f"{b.kind} segment: only the paged KV pool is ported (see ROADMAP.md)")
-        out.append(tree_map(lambda a: a.expand(b.n_layers, *a.shape).clone(),
-                            {"attn": sub}))
+        sub = attn_override(b) if attn_override is not None else None
+        one = block_cache(b, cfg.d_model, batch, max_len, dtype, device, attn=sub)
+        out.append(tree_map(lambda a: a.expand(b.n_layers, *a.shape).clone(), one))
     return out
 
 

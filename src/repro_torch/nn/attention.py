@@ -1,6 +1,6 @@
-"""Attention for the serving path: GQA over the paged physical KV pool.
+"""Attention: GQA over the paged physical KV pool and the dense caches.
 
-The port of the JAX package's ``nn/attention.py``, paged GQA only:
+The port of the JAX package's ``nn/attention.py``, GQA only:
 
 * the physical block pool ``k_pool/v_pool [n_blocks+1, block_size, H_kv, D]``
   is shared by every serving slot; per-slot block ``tables`` map logical
@@ -8,13 +8,19 @@ The port of the JAX package's ``nn/attention.py``, paged GQA only:
   inactive slots and pad rows (``init_paged_cache``);
 * decode rows attend in place through :func:`paged_attention` (the CUDA
   kernel on the card); chunked prefill gathers the table's pages once and
-  runs the plain ``sdpa`` core, as the JAX package does with jnp.
+  runs the plain ``sdpa`` core, as the JAX package does with jnp;
+* the dense cache ``k/v [B, S_max, H_kv, D]`` or, with ``window > 0``, a
+  ring buffer of ``window`` rows (``init_cache``), with a scalar ``pos``
+  (static batch) or a per-slot ``pos [B]`` (serving); these run the plain
+  ``sdpa`` core, as the JAX package runs jnp there.
 
 K/V rows are written into the pool **in place** (the JAX package returns a
 new pool array; here the cache tensors are updated where they lie, which
 saves a pool-sized copy per layer).  The returned cache dict holds the same
-pool tensors and a new ``pos`` vector.  Dense, ring-buffer, MLA and M-RoPE
-caches are not ported yet.
+pool tensors and a new ``pos`` vector.  Dense and ring rows are written
+**out of place**, as the JAX package writes them: the serving steps merge
+each slot's old and new cache by its activity mask, which needs both.  MLA
+and M-RoPE are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.nn.layers import apply_rope, linear, linear_spec
 from repro_torch.nn.module import ParamSpec
 
-__all__ = ["attn_spec", "attention", "init_paged_cache", "sdpa",
+__all__ = ["attn_spec", "attention", "init_cache", "init_paged_cache", "sdpa",
            "DEFAULT_CHUNK", "KV_SCALE", "POOL_LEAVES"]
 
 # Cache-leaf names of the paged physical KV store (no slot axis).
@@ -71,6 +77,22 @@ def attn_spec(cfg: AttnConfig, d_model: int) -> Dict[str, ParamSpec]:
         "k": linear_spec(d_model, Hkv * D, ("embed", "heads_flat")),
         "v": linear_spec(d_model, Hkv * D, ("embed", "heads_flat")),
         "o": linear_spec(H * D, d_model, ("heads_flat", "embed")),
+    }
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    """Dense decode cache of one GQA layer: ``k/v [batch, size, H_kv, D]``
+    with ``size = window`` (a ring buffer) or ``max_len``, and a scalar
+    ``pos``."""
+    if cfg.kind != "gqa":
+        raise _not_ported(f"the {cfg.kind} cache")
+    size = cfg.window if cfg.window else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -268,6 +290,76 @@ def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
     return o, new_cache
 
 
+# ---------------------------------------------------------------------------
+# dense and ring-buffer GQA caches
+# ---------------------------------------------------------------------------
+
+def _ring_positions(next_pos, size: int):
+    """Absolute position of each ring-buffer slot given ``next_pos`` total
+    written (2^30, invisible, for a slot not written yet)."""
+    slots = torch.arange(size, dtype=torch.int32, device=next_pos.device)
+    wrapped = next_pos - 1 - (next_pos - 1 - slots) % size
+    return torch.where(slots < next_pos, wrapped, 2**30).to(torch.int32)
+
+
+def _put_rows(cache, dst, new):
+    """``cache [B, size, ...]`` with row ``dst[b, j]`` of slot ``b`` set to
+    ``new[b, j]``, out of place.  A ``dst`` at or past ``size`` is dropped,
+    as JAX drops an out-of-bounds scatter: each such row lands in a pad row
+    of its own, cut off again."""
+    B, size = cache.shape[0], cache.shape[1]
+    S = dst.shape[-1]
+    out = torch.cat([cache, cache.new_zeros((B, S, *cache.shape[2:]))], dim=1)
+    pad = size + torch.arange(S, device=dst.device)
+    dst = torch.where(dst < size, dst.long(), pad).expand(B, S)
+    out[torch.arange(B, device=dst.device)[:, None], dst] = new
+    return out[:, :size]
+
+
+def _dense_gqa_core(q, k, v, cfg: AttnConfig, positions, cache):
+    """Write the new K/V rows into a dense or ring-buffer cache and attend
+    over it: the four cases of the JAX package's ``_gqa_attention``.
+
+    * ``pos`` a scalar (static batch, every row in lockstep): the dense
+      cache takes the chunk at ``pos`` with ``dynamic_update_slice``'s
+      clamp of the start; the ring takes row ``(pos + j) % window``;
+    * ``pos [B]`` per slot (serving): the rows ``pos[b] + j`` of each slot,
+      modulo the ring's size for a ring; dense rows past the cache are
+      dropped.  Keys at or past a slot's new length are masked, so rows a
+      previous occupant left behind stay invisible.
+
+    A chunk longer than the ring keeps its last ``size`` rows, as the JAX
+    scatter's in-order writes leave them (the static loop's lossy one-shot
+    prefill past the window).  Returns (output, new cache)."""
+    B, S = q.shape[0], q.shape[1]
+    pos = cache["pos"]
+    size = cache["k"].shape[1]
+    cdt = cache["k"].dtype
+    kw, vw = _cache_write(k, cdt), _cache_write(v, cdt)
+    idx = torch.arange(S, dtype=torch.int32, device=q.device)
+    if cfg.window and S > size:
+        kw, vw, idx = kw[:, S - size:], vw[:, S - size:], idx[S - size:]
+    slot_rows = torch.arange(size, dtype=torch.int32, device=q.device)
+    if pos.ndim:
+        rows = pos[:, None] + idx                                  # [B, S]
+        nxt = (pos + S)[:, None]
+    else:
+        if not cfg.window and S > size:
+            raise ValueError(f"a chunk of {S} rows does not fit a cache of {size}")
+        start = pos if cfg.window else torch.clamp(pos, 0, size - S)
+        rows = (start + idx)[None, :]                              # [1, S]
+        nxt = pos + S
+    if cfg.window:
+        rows = rows % size
+        k_pos = _ring_positions(nxt, size)
+    else:
+        k_pos = torch.where(slot_rows < nxt, slot_rows, 2**30).to(torch.int32)
+    ck, cv = _put_rows(cache["k"], rows, kw), _put_rows(cache["v"], rows, vw)
+    o = sdpa(q, _cache_read(ck, q.dtype), _cache_read(cv, q.dtype), positions,
+             k_pos.expand(B, size), cfg.window)
+    return o, {"k": ck, "v": cv, "pos": pos + S}
+
+
 def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
                    spec_decode: bool = False, q_lens=None, q_decode=None):
     B, S, _ = x.shape
@@ -288,7 +380,7 @@ def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
                                        spec_decode=spec_decode, q_lens=q_lens,
                                        q_decode=q_decode)
     else:
-        raise _not_ported("the dense and ring-buffer KV caches")
+        o, new_cache = _dense_gqa_core(q, k, v, cfg, positions, cache)
     o = o.reshape(B, S, H * D)
     return linear(o, p["o"], odin), new_cache
 
@@ -296,8 +388,10 @@ def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
 def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
               tables=None, spec_decode: bool = False, q_lens=None, q_decode=None):
     """Returns (output [B,S,d_model], new_cache).  ``tables`` are the per-slot
-    block tables of the paged serving cache; ``spec_decode``, ``q_lens`` and
-    ``q_decode`` as in :func:`_paged_gqa_core`."""
+    block tables of the paged serving cache (ignored by dense caches);
+    ``spec_decode``, ``q_lens`` and ``q_decode`` as in
+    :func:`_paged_gqa_core` (a dense cache already attends an S-token tile
+    with decode semantics)."""
     B, S, _ = x.shape
     if cfg.kind != "gqa":
         raise _not_ported(f"{cfg.kind} attention")

@@ -12,9 +12,12 @@ Two tiers, mirroring the classic paged-KV serving design:
   on the engine's device.  Pool leaves (``k_pool/v_pool``) swap by block-table
   handoff: ``swap_out`` copies the request's device blocks (by id) into swap
   blocks with one torch index copy per leaf, ``swap_in`` copies them back into
-  whatever device blocks the scheduler hands the resumed request.  The
-  per-slot ``pos`` vector rides along in the :class:`SwapTicket`.  Dense
-  sequence leaves (ring buffers, MLA latents) are not part of this port yet.
+  whatever device blocks the scheduler hands the resumed request.  Dense
+  sequence leaves (``k/v [L, slots, rows, ...]``: the dense live cache and
+  the sliding-window rings) copy the slot's rows block by block into the
+  same swap blocks.  The other per-slot leaves (``pos`` and recurrent state
+  such as the SSM's ``h`` and ``conv``) ride along in the
+  :class:`SwapTicket`.
 """
 from __future__ import annotations
 
@@ -31,8 +34,7 @@ from repro_torch.tree import leaves_with_path
 
 __all__ = ["BlockPool", "PagedKVStore", "SwapTicket"]
 
-# Dense cache leaves with a sequence axis in the JAX package's layout; the
-# port's store rejects them (only the paged pool is ported).
+# Dense cache leaves with a sequence axis (slot axis 1, rows axis 2).
 SEQ_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
@@ -313,7 +315,7 @@ class BlockPool:
 @dataclass
 class SwapTicket:
     """Handle for one swapped-out sequence: swap-tier block ids plus the
-    non-paged slot state (the per-slot position vectors).
+    non-paged slot state (recurrent states, per-slot position vectors).
 
     ``skip_blocks`` leading device blocks were *retained* instead of copied
     (sharing-aware swap: the scheduler kept refcount claims on blocks other
@@ -331,8 +333,12 @@ class PagedKVStore:
     """Swap-tier paged storage matching one serving-cache layout.
 
     Built from a serving cache tree (``init_serving_caches``); allocates a
-    ``[n_blocks, L, block_size, *trailing]`` buffer per pool leaf on the
-    leaf's device.  Copies update the engine's cache tensors in place.
+    ``[n_blocks, L, block_size, *trailing]`` buffer per pool leaf and per
+    dense sequence leaf, on the leaf's device.  A sliding-window ring is
+    clamped to its capacity: a ring of ``rows`` rows only ever occupies the
+    first ``rows / block_size`` blocks of the table, and restoring its rows
+    and ``pos`` restores the ring exactly.  Copies update the engine's cache
+    tensors in place.
     """
 
     def __init__(self, caches, n_blocks: int, block_size: int):
@@ -343,6 +349,7 @@ class PagedKVStore:
         self._fail_out = 0
         self._fail_in = 0
         self.bufs: Dict[str, torch.Tensor] = {}
+        self.pool_keys: set = set()
         for key, name, leaf in leaves_with_path(caches):
             if name in POOL_LEAVES:
                 L, _, bs, *trail = leaf.shape
@@ -350,13 +357,18 @@ class PagedKVStore:
                     raise ValueError(
                         f"pool leaf {key} block size {bs} != "
                         f"store block size {block_size}")
-                self.bufs[key] = torch.zeros(
-                    (n_blocks, L, block_size, *trail), dtype=leaf.dtype,
-                    device=leaf.device)
+                self.pool_keys.add(key)
             elif name in SEQ_LEAVES:
-                raise NotImplementedError(
-                    f"dense cache leaf {key}: only the paged block pool is "
-                    "ported (see ROADMAP.md)")
+                L, _, size, *trail = leaf.shape
+                if size % block_size:
+                    raise ValueError(
+                        f"cache seq axis {size} of {key} not divisible "
+                        f"by block_size {block_size}")
+            else:
+                continue
+            self.bufs[key] = torch.zeros(
+                (n_blocks, L, block_size, *trail), dtype=leaf.dtype,
+                device=leaf.device)
 
     def arm_swap_failures(self, direction: str, n: int = 1) -> None:
         """Fault injection: the next ``n`` copies in ``direction`` ("out" or
@@ -368,30 +380,42 @@ class PagedKVStore:
         else:
             raise ValueError(f"direction must be 'out' or 'in', got {direction!r}")
 
+    def _nb_leaf(self, leaf, nb: int) -> int:
+        # ring-buffer leaves are smaller than the table they are filed under
+        return min(nb, leaf.shape[2] // self.block_size)
+
     def swap_out(self, caches, slot: int, block_ids: List[int], n_tokens: int,
                  dev_ids: Optional[List[int]] = None,
                  skip: int = 0) -> SwapTicket:
         """Copy ``slot``'s cache state into swap blocks; returns the ticket.
 
         ``dev_ids`` is the request's device block table at preemption time —
-        pool leaves copy those blocks directly (block-table handoff).
-        ``skip`` leading device blocks are retained on-device by the
-        scheduler (sharing-aware swap) and excluded from the copy.
+        pool leaves copy those blocks directly (block-table handoff); dense
+        sequence leaves copy the slot's rows.  ``skip`` leading device blocks
+        are retained on-device by the scheduler (sharing-aware swap) and
+        excluded from the copy.
         """
         if self._fail_out:
             self._fail_out -= 1
             raise SwapCopyError("injected swap-out copy fault")
+        bs = self.block_size
         ticket = SwapTicket(list(block_ids), n_tokens, skip_blocks=skip)
         for key, _, leaf in leaves_with_path(caches):
-            if key in self.bufs:
+            dev = leaf.device
+            if key in self.pool_keys:
                 if dev_ids is None:
                     raise ValueError(f"pool leaf {key} needs dev_ids to swap out")
                 nbl = min(len(block_ids), len(dev_ids) - skip)
-                dev = leaf.device
                 ids = torch.as_tensor(block_ids[:nbl], dtype=torch.long, device=dev)
                 src = torch.as_tensor(dev_ids[skip:skip + nbl], dtype=torch.long,
                                       device=dev)
                 self.bufs[key][ids] = leaf[:, src].transpose(0, 1)
+            elif key in self.bufs:
+                nbl = max(0, self._nb_leaf(leaf, skip + len(block_ids)) - skip)
+                ids = torch.as_tensor(block_ids[:nbl], dtype=torch.long, device=dev)
+                seg = leaf[:, slot, skip * bs:(skip + nbl) * bs]
+                self.bufs[key][ids] = seg.reshape(
+                    leaf.shape[0], nbl, bs, *leaf.shape[3:]).transpose(0, 1)
             else:
                 ticket.side[key] = leaf[:, slot].clone()
         return ticket
@@ -408,18 +432,26 @@ class PagedKVStore:
         if self._fail_in:
             self._fail_in -= 1
             raise SwapCopyError("injected swap-in copy fault")
+        bs = self.block_size
         skip = ticket.skip_blocks
         for key, _, leaf in leaves_with_path(caches):
-            if key in self.bufs:
+            dev = leaf.device
+            if key in self.pool_keys:
                 if dev_ids is None:
                     raise ValueError(f"pool leaf {key} needs dev_ids to swap in")
                 nbl = min(len(ticket.block_ids), len(dev_ids) - skip)
-                dev = leaf.device
                 ids = torch.as_tensor(ticket.block_ids[:nbl], dtype=torch.long,
                                       device=dev)
                 dst = torch.as_tensor(dev_ids[skip:skip + nbl], dtype=torch.long,
                                       device=dev)
                 leaf[:, dst] = self.bufs[key][ids].transpose(0, 1)
+            elif key in self.bufs:
+                nbl = max(0, self._nb_leaf(leaf, skip + len(ticket.block_ids)) - skip)
+                ids = torch.as_tensor(ticket.block_ids[:nbl], dtype=torch.long,
+                                      device=dev)
+                seg = self.bufs[key][ids].transpose(0, 1)          # [L, nbl, bs, ..]
+                leaf[:, slot, skip * bs:(skip + nbl) * bs] = seg.reshape(
+                    leaf.shape[0], nbl * bs, *leaf.shape[3:])
             elif key in ticket.side:
                 leaf[:, slot] = ticket.side[key]
             else:  # pragma: no cover — layout mismatch

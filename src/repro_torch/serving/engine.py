@@ -5,24 +5,32 @@ reliability sweeps, degradation, metrics and tracing — is the JAX package's
 ``serving/engine.py`` unchanged.  The device half runs the port's eager
 serving steps (``launch/steps.py``) on the engine's ``device``:
 
-* the caches hold the physical block pool ``k_pool/v_pool`` per segment;
-  prefill writes K/V rows straight into the request's blocks, decode
-  attends through the paged kernel (the CUDA kernel on the card);
+* pageable segments (non-windowed GQA) hold the physical block pool
+  ``k_pool/v_pool``; prefill writes K/V rows straight into the request's
+  blocks, decode attends through the paged kernel (the CUDA kernel on the
+  card).  With ``paged=False`` they hold the dense per-slot cache instead;
+  sliding-window segments always hold a per-slot ring with ``chunk`` rows
+  of headroom, and Hymba segments their SSM state (plain PyTorch, as the
+  JAX package runs jnp there);
 * mixed dispatch fuses prefill-chunk rows and decode rows into one tile;
 * ``horizon > 1`` runs up to ``h`` decode steps per dispatch with the
   token carry kept on the device and one host sync at the end;
 * ``spec_ngram = K`` drafts ``K`` tokens a slot by n-gram lookup over an
   on-device token history and verifies them in one ``K+1``-row forward
   (the paged kernel's multi-token tile), up to ``h`` such steps a dispatch;
-* swap preemption is a block-to-block index copy on the device;
+* swap preemption is a block-to-block index copy on the device (dense and
+  ring rows are copied block by block, recurrent state rides in the
+  ticket);
 * a step that a fault plan poisons runs the guarded decode step, whose
   per-slot finiteness verdict quarantines the poisoned request alone.
 
 Host syncs happen where the JAX engine syncs (end of a prefill, the token
 readback of each dispatch) and nowhere else.
 
-Not ported yet (see ROADMAP.md): dense caches (``paged=False`` or
-non-paged archs) and requests carrying ``extras``.
+Prefix sharing and mixed dispatch need a fully paged model (every cache
+leaf in the pool, or the ``pos`` counter): they turn off by themselves on
+any other and raise when forced on.  Not ported yet (see ROADMAP.md):
+requests carrying ``extras``.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ from repro_torch.launch.steps import (init_serving_caches,
 from repro_torch.models import lm
 from repro_torch.nn import module as nnmod
 from repro_torch.nn.attention import POOL_LEAVES
-from repro_torch.serving.blocks import BlockPool, PagedKVStore
+from repro_torch.serving.blocks import SEQ_LEAVES, BlockPool, PagedKVStore
 from repro_torch.serving.degrade import DegradationController, DegradeConfig
 from repro_torch.serving.faults import (EngineStallError, FaultPlan, ShuttingDown,
                                        SwapCopyError)
@@ -86,8 +94,7 @@ class ServingEngine:
       dispatch in a ``torch.profiler.record_function`` range instead;
     * the guarded decode step is an eager function built with the others,
       not an executable compiled on first use;
-    * ``paged=False``, models with non-paged segments and requests with
-      ``extras`` raise ``NotImplementedError``.
+    * requests with ``extras`` raise ``NotImplementedError``.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
@@ -121,10 +128,6 @@ class ServingEngine:
             raise ValueError(f"max_len {max_len} not divisible by block_size {block_size}")
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
-        if not paged:
-            raise _not_ported("the dense serving cache (paged=False)")
-        if not all(pageable_block(b) for b in cfg.blocks):
-            raise _not_ported(f"serving {cfg.name}'s non-paged cache families")
         if jit_cache < 1:
             raise ValueError(f"jit_cache must be >= 1, got {jit_cache}")
         self.cfg = cfg
@@ -175,15 +178,28 @@ class ServingEngine:
                 raise ValueError(
                     f"spec_hist {self.spec_hist} too short for K="
                     f"{self.spec_ngram} drafts with {self._spec_n}-gram match")
-            # (the JAX engine's sliding-window headroom check has no case
-            # here: windowed segments are refused above)
+            if any(b.attn is not None and b.attn.window
+                   for b in cfg.blocks) and self.chunk <= self.spec_ngram:
+                raise ValueError(
+                    "sliding-window ring headroom (prefill_chunk = "
+                    f"{self.chunk}) must exceed spec_ngram {self.spec_ngram}: "
+                    "a verify tile may overwrite ring rows up to K past the "
+                    "committed length")
 
         if n_blocks is None:
             n_blocks = slots * (max_len // block_size)
-        self.caches = init_serving_caches(cfg, slots, max_len,
-                                          block_size=block_size,
-                                          n_blocks=n_blocks, device=self.device)
-        self._prefill = make_slot_prefill_step(cfg)
+        self.paged = paged and any(pageable_block(b) for b in cfg.blocks)
+        # ring buffers get `chunk` rows of headroom so chunked prefill is
+        # exact for sliding-window attention; pageable segments get the
+        # physical block pool instead of a dense live cache
+        pooled = self.paged and n_blocks > 0
+        self.caches = init_serving_caches(
+            cfg, slots, max_len, window_headroom=self.chunk, round_to=block_size,
+            block_size=block_size, n_blocks=n_blocks if pooled else 0,
+            device=self.device)
+        self._prefill = make_slot_prefill_step(
+            cfg, max_len, window_headroom=self.chunk, round_to=block_size,
+            block_size=block_size, paged=pooled)
         self._decode = make_serving_decode_step(cfg, top_k=self.top_k)
         self._mixed = make_serving_mixed_step(cfg, top_k=self.top_k)
         self._guarded = make_serving_decode_guarded(cfg, top_k=self.top_k)
@@ -209,20 +225,33 @@ class ServingEngine:
             policy=("min_wear" if rel is not None and rel.wear_leveling
                     else "lifo"),
             endurance_budget=rel.endurance_budget if rel is not None else None)
-        # prefix sharing and mixed dispatch need the block pool to BE the
-        # whole model state: every cache leaf lives in the pool or is the
-        # per-slot `pos` counter
-        fully_paged = all(name in POOL_LEAVES + ("pos",)
-                          for _, name, _ in leaves_with_path(self.caches))
+        # prefix sharing needs the block pool to BE the whole model state:
+        # every cache leaf lives in the pool or is the per-slot `pos` counter
+        # the tail prefill re-derives.  A dense KV row or recurrent state
+        # would be skipped by a shared-prefix (tail-only) prefill.
+        fully_paged = self.paged and all(
+            name in POOL_LEAVES + ("pos",)
+            for _, name, _ in leaves_with_path(self.caches))
         if prefix_sharing is None:
             prefix_sharing = fully_paged
         elif prefix_sharing and not fully_paged:
-            raise ValueError("prefix_sharing=True needs a fully paged cache layout")
+            raise ValueError(
+                "prefix_sharing=True needs a fully paged cache layout "
+                "(non-windowed GQA families with paged=True); this model "
+                "keeps per-slot dense/recurrent state a shared block cannot "
+                "cover")
         self.prefix_sharing = bool(prefix_sharing)
+        # mixed dispatch shares the gate: the fused tile writes prompt KV
+        # through the block tables, and dense ring or recurrent state would
+        # need per-slot multi-row advances the [slots, Q] tile cannot express
         if mixed is None:
             mixed = fully_paged
         elif mixed and not fully_paged:
-            raise ValueError("mixed=True needs a fully paged cache layout")
+            raise ValueError(
+                "mixed=True needs a fully paged cache layout (non-windowed "
+                "GQA families with paged=True); this model keeps per-slot "
+                "dense/recurrent state a mixed prefill+decode tile cannot "
+                "advance by heterogeneous per-slot row counts")
         self.mixed = bool(mixed)
         self.mixed_budget = int(mixed_budget if mixed_budget is not None
                                 else self.chunk + slots)
@@ -298,10 +327,12 @@ class ServingEngine:
         return t
 
     def _kv_bytes(self) -> int:
-        """Device bytes held by the KV pool leaves."""
+        """Device bytes held by KV-bearing cache leaves (the pool, dense
+        and ring rows; not the SSM state)."""
+        names = SEQ_LEAVES + POOL_LEAVES
         return int(sum(leaf.numel() * leaf.element_size()
                        for _, name, leaf in leaves_with_path(self.caches)
-                       if name in POOL_LEAVES))
+                       if name in names))
 
     def _dev(self, array) -> torch.Tensor:
         return torch.as_tensor(array, device=self.device)
@@ -684,7 +715,7 @@ class ServingEngine:
             return
         t0 = self._now()
         moves = [(s, d) for s, d in pairs if s != d]
-        if moves:
+        if self.paged and moves:
             self._copy_blocks([s for s, _ in moves], [d for _, d in moves])
         rows = len(pairs) * self.block_size
         self.pool.record_writes([(d, self.block_size) for _, d in pairs], now)

@@ -3,8 +3,9 @@
 Both engines run float32 params (the JAX package's, carried across by the
 bridge) and float32 KV pools, on the same ``mixed_spec()`` request stream;
 their greedy token streams must be identical in each engine configuration
-below.  In bfloat16 the port's own invariants must hold bit for bit: mixed
-dispatch on vs off, and horizon 4 vs 1."""
+below, and with the dense live cache (``paged=False``).  In bfloat16 the
+port's own invariants must hold bit for bit: mixed dispatch on vs off, and
+horizon 4 vs 1."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from repro.serving import make_requests as jax_make_requests
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import registry as tregistry
 from repro_torch.serving import ServingEngine, make_requests
+from repro_torch.tree import leaves_with_path
 
 ARCH = "phi4-mini-3.8b"
 SHARED = mixed_spec(n_requests=6, shared_prefix=16)
@@ -122,9 +124,31 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32)
 
 
-# n_blocks=0 asks for the JAX engine's dense live cache, as paged=False does
-@pytest.mark.parametrize("kw", [{"n_blocks": 0}, {"paged": False}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tregistry.get_smoke(ARCH), slots=2, max_len=32,
-                      device="cpu", **kw)
+def test_dense_live_cache_matches_jax_engine(models, runs):
+    """paged=False: the dense [slots, max_len] live cache and plain sdpa in
+    both engines; the streams equal the JAX engine's and the paged run's,
+    the cache bytes are the JAX engine's, mixed dispatch and prefix sharing
+    are off."""
+    ours, summary, _ = run_port(*models["torch32"], paged=False)
+    theirs, jsummary = run_workload(*models["jax32"], paged=False)
+    assert ours == theirs == runs("torch", "defaults")[0]
+    assert summary["kv_cache_bytes"] == jsummary["kv_cache_bytes"]
+    assert summary["mixed"]["dispatches"] == 0
+
+
+def test_zero_block_pool_matches_jax_engine(models):
+    """n_blocks=0: both engines build the dense live cache, and both refuse
+    every request at submit, since the block pool that budgets it has no
+    block to grant."""
+    kw = dict(slots=3, max_len=48, block_size=8, n_blocks=0)
+    from repro.serving import ServingEngine as JaxEngine
+    ours = ServingEngine(*models["torch32"][:1], params=models["torch32"][1],
+                         device="cpu", **kw)
+    theirs = JaxEngine(models["jax32"][0], params=models["jax32"][1], **kw)
+    assert {n for _, n, _ in leaves_with_path(ours.caches)} == {"k", "v", "pos"}
+    errors = []
+    for eng, mk in ((ours, make_requests), (theirs, jax_make_requests)):
+        with pytest.raises(ValueError, match="pool has 0 usable") as e:
+            eng.submit(mk(eng.cfg, mixed_spec(), seed=9)[0])
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]

@@ -41,7 +41,7 @@ def jax_params():
 
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
 def test_configs_are_the_reference_configs(which):
-    for arch in (ARCH, "qwen3-moe-235b-a22b"):
+    for arch in (ARCH, "qwen3-moe-235b-a22b", "hymba-1.5b"):
         ours, theirs = getattr(tregistry, which)(arch), getattr(jregistry, which)(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert tmodule.count_params(tlm.param_spec(ours)) == jmodule.count_params(
@@ -53,7 +53,7 @@ def test_configs_are_the_reference_configs(which):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_smoke("hymba-1.5b")
+        tregistry.get_smoke("deepseek-v3-671b")
 
 
 def _flat(tree):

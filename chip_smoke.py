@@ -40,9 +40,9 @@ Phases, each fatal on failure:
    8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
    yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
    on the card) against the CPU's int32 matmul;
-3. check two small models end to end, dense and MoE: the engine on the
-   card (CUDA kernel) and on the CPU (plain path) must emit the same greedy
-   tokens in float32;
+3. check three small models end to end, dense, MoE and the deepseek-v3
+   smoke config (MLA + MoE): the engine on the card (CUDA kernel) and on the
+   CPU (plain path) must emit the same greedy tokens in float32;
 4. serve full-width phi4-mini-3.8b (all 32 layers, random bf16 weights from a
    seeded generator) through the port's ServingEngine with its defaults
    (mixed dispatch, prefix sharing) and show that every forward that carried
@@ -79,8 +79,8 @@ Phases, each fatal on failure:
    float32); then hymba-1.5b at every width and all 32 layers (random bf16
    weights): 8 prompts of 1536 tokens past the 1024-token window, 64 greedy
    tokens, ``paged_attention`` launched once a decode-carrying forward by
-   each of the three global layers, held against ``paged=False``, a swap
-   pressure run and horizon 4; a decode profile with the SSM's and
+   each of the three global layers; its first 4 prompts held against
+   ``paged=False``, a swap pressure run and horizon 4; a decode profile with the SSM's and
    ``paged_attn``'s shares; the per-token cost of the SSM scan at prefill;
 9. serve qwen3-moe-235b-a22b at every published width over 8 of its 94
    layers (random bf16 weights, the router float32): the serving phase's 8
@@ -90,14 +90,26 @@ Phases, each fatal on failure:
    spec-off run, every decode-carrying forward launching
    ``paged_attention`` once per layer; then a decode profile with the
    expert products' and ``paged_attn``'s shares of the device time;
-10. run the paper's experiment at full width (``launch/odin_inference``):
+10. deepseek-v3-671b's widths over 1 dense and 1 MoE layer, float32: the
+   logits of a prefill and 3 decode steps on the card equal to the CPU
+   plain path, and moved past the bound when the routed experts' output is
+   zeroed; then serve deepseek-v3-671b at every published width over its
+   3 dense and 2 of its 58 MoE layers with the MTP subtree (random bf16 weights, 54.6 GB):
+   multi-head latent attention over the compressed latent cache, dense per
+   slot (no ``paged_attention`` launch on any run); the serving phase's 8
+   prompts of 512 tokens with 32 greedy tokens, a swap-pressure run at
+   horizon 4, n-gram speculation (K = 4, horizon 4) on repetitive traffic
+   against a spec-off run, and the static loop, each held against its
+   base run; a decode profile with the latent decompression's and the
+   expert products' shares;
+11. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-11. run the kernel bench entry point (``launch/kernel_bench``), the path of
+12. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -107,11 +119,12 @@ than one path, the count of each.
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
 odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
-serve_hybrid`` (any subset) runs only those checks, for a focused call, and
-prints no kernels line.
+serve_hybrid,mla_card,serve_mla`` (any subset) runs only those checks, for a focused
+call, and prints no kernels line.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -152,6 +165,29 @@ def free_device_memory():
     closures over themselves), which only the collector frees."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """Replaces ``module.name`` by ``wrap(original)`` while entered: the
+    port calls these functions through their module, so the wrapper sees
+    every call (chip_smoke's instrumentation; the port has none)."""
+    fn = getattr(module, name)
+    setattr(module, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def ranged(module, name):
+    """Wraps every call of ``module.name`` in a profiler range of that name."""
+    def wrap(fn):
+        def inner(*a, **k):
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        return inner
+    return patched(module, name, wrap)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -458,11 +494,12 @@ def check_paged_attn():
 # ---------------------------------------------------------------------------
 
 def small_model_card_vs_cpu():
-    """2-layer models with the kernel's head dim, dense and MoE: greedy
-    streams of the engine on the card (CUDA kernel) equal those on the CPU
-    (plain path), in float32."""
+    """2-layer models with the kernel's head dim, dense and MoE, and the
+    deepseek-v3 smoke config (MLA + MoE, 3 layers): greedy streams of the
+    engine on the card (CUDA kernel; plain PyTorch on the card for MLA)
+    equal those on the CPU (plain path), in float32."""
     from repro_torch.configs.base import AttnConfig, BlockConfig, ModelConfig, MoEConfig
-    from repro_torch.models import lm
+    from repro_torch.models import lm, registry
     from repro_torch.nn.module import materialize
     from repro_torch.serving import ServingEngine, WorkloadSpec, make_requests
     from repro_torch.tree import tree_map
@@ -473,9 +510,11 @@ def small_model_card_vs_cpu():
                                  moe=MoEConfig(n_experts=8, top_k=2, d_ff=128,
                                                aux_free_bias=False))}
     spec = WorkloadSpec(n_requests=5, rate=1e9, prompt_buckets=(24, 40), gen_buckets=(8, 20))
-    for kind, block in blocks.items():
-        cfg = ModelConfig(name=f"smoke-{kind}-d64", d_model=256, vocab=512,
-                          kv_dtype="float32", blocks=(block,))
+    cfgs = {kind: ModelConfig(name=f"smoke-{kind}-d64", d_model=256, vocab=512,
+                              kv_dtype="float32", blocks=(block,))
+            for kind, block in blocks.items()}
+    cfgs["mla"] = registry.get_smoke(MLA_ARCH).with_overrides(kv_dtype="float32")
+    for kind, cfg in cfgs.items():
         gen = torch.Generator().manual_seed(0)
         params = tree_map(lambda t: t.float(), materialize(lm.param_spec(cfg), gen, "cpu"))
         streams = {}
@@ -490,7 +529,7 @@ def small_model_card_vs_cpu():
             raise AssertionError(f"small {kind} model: card {streams['cuda']} != "
                                  f"cpu {streams['cpu']}")
         n = sum(len(s) for s in streams["cuda"].values())
-        log(f"small {kind} model (d_head 64, float32): card == cpu greedy streams, "
+        log(f"small {kind} model ({cfg.name}, float32): card == cpu greedy streams, "
             f"{n} tokens")
 
 
@@ -947,7 +986,7 @@ def load_qwen3():
 
 def _is_expert_bmm(cfg):
     """Profiler row of an expert product: ``aten::bmm`` over n_experts batches."""
-    E = cfg.blocks[0].moe.n_experts
+    E = next(b.moe.n_experts for b in cfg.blocks if b.moe is not None)
     return lambda e: (e.key == "aten::bmm" and bool(e.input_shapes)
                       and bool(e.input_shapes[0]) and e.input_shapes[0][0] == E)
 
@@ -1009,6 +1048,260 @@ def serve_moe(cfg, params, prompts):
     launches = {"serve_moe": a["launches"], "serve_moe_unmixed": b["launches"],
                 "serve_moe_repetitive_h4": off["launches"], "serve_moe_spec": on["launches"]}
     return launches, on["launches_by_q"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: multi-head latent attention (deepseek-v3) at full width
+# ---------------------------------------------------------------------------
+
+MLA_ARCH, MLA_MOE_LAYERS = "deepseek-v3-671b", 2
+
+
+def mla_card_vs_cpu():
+    """deepseek-v3-671b at every published width over 1 dense and 1 MoE
+    layer (no MTP subtree: serving never runs it), float32 weights (55.8 GB)
+    from a seeded generator on the card and their copy on the host: the
+    logits of a 24-token prefill of 2 slots and 3 decode steps on serving
+    caches (per-slot ``pos``, float32 latents, drop-free routing over all
+    256 experts) are equal on the card and on the CPU (the plain path that
+    the CPU tests hold against the JAX package), within atol/rtol 1e-4 (the
+    CPU tests' bound: float32 sums in another order).  The full-width
+    serving runs hold the card against itself; this is their witness for
+    the MoE half.  The init's fan-in spans the stacked expert axis (the
+    reference's rule), which leaves a random routed expert's output near
+    1e-4 of the residual, below the bound; so the check scales the routed
+    experts' weights by sqrt(256), to each expert's own fan-in, and then
+    must see them: with their ``w_down`` zeroed on the card, most logits
+    move past the bound.  Returns the card run's ``paged_attention``
+    launches (0: the latent cache is dense)."""
+    import dataclasses
+
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.steps import init_serving_caches
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+    from repro_torch.tree import tree_map
+
+    full = registry.get_config(MLA_ARCH)
+    dense, moe = full.blocks
+    cfg = full.with_overrides(kv_dtype="float32", mtp=False, blocks=(
+        dataclasses.replace(dense, n_layers=1), dataclasses.replace(moe, n_layers=1)))
+    spec = tree_map(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                    lm.param_spec(cfg))
+    t0 = time.perf_counter()
+    card = materialize(spec, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    experts = card["segments"][1]["moe"]
+    for name in ("w_gate", "w_up", "w_down"):
+        experts[name].mul_(math.sqrt(moe.moe.n_experts))
+    host = tree_map(lambda t: t.cpu(), card)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    B, S, steps = 2, 24, 3
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(steps, B, 1), dtype=np.int32))
+
+    def logits(p, dev):
+        caches = init_serving_caches(cfg, B, 64, device=dev)
+        out, caches, _ = lm.forward(p, prompt.to(dev), cfg, caches=caches, moe_no_drop=True)
+        outs = [out]
+        for i in range(steps):
+            start = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+            out, caches, _ = lm.forward(p, toks[i].to(dev), cfg, caches=caches,
+                                        start_pos=start, moe_no_drop=True)
+            outs.append(out)
+        return torch.cat(outs, dim=1).cpu()              # [B, S + steps, V]
+
+    paged_attention.launches = 0
+    t = time.perf_counter()
+    on_card = logits(card, "cuda")
+    card_s = time.perf_counter() - t
+    launches = paged_attention.launches
+    t = time.perf_counter()
+    on_cpu = logits(host, "cpu")
+    cpu_s = time.perf_counter() - t
+    del host
+    if launches:
+        raise AssertionError(f"mla card check: paged_attention launched {launches}x")
+    if not bool(torch.isfinite(on_card).all()):
+        raise AssertionError("mla card check: non-finite logits on the card")
+    err = (on_card - on_cpu).abs()
+    bound = 1e-4 + 1e-4 * on_cpu.abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"mla card check: card logits off the CPU's by "
+                             f"{err.max():.3e}")
+    experts["w_down"].zero_()
+    moved = (logits(card, "cuda") - on_card).abs()
+    seen = (moved > bound).float().mean().item()
+    if seen < 0.5:
+        raise AssertionError(f"mla card check: zeroing the routed experts moves "
+                             f"{seen:.1%} of the logits past the bound; the check "
+                             f"cannot see them")
+    log("mla card vs cpu:", json.dumps({
+        "arch": MLA_ARCH, "layers": "1 dense + 1 MoE of 61", "dtype": "float32",
+        "params_b": count_params(spec) / 1e9, "slots": B, "prefill": S, "decode_steps": steps,
+        "logits_max_abs_err": err.max().item(), "logits_max_abs": on_cpu.abs().max().item(),
+        "routed_experts_zeroed_max_move": moved.max().item(),
+        "routed_experts_zeroed_share_past_bound": seen,
+        "setup_s": setup_s, "card_s": card_s, "cpu_s": cpu_s,
+        "paged_attn_launches": launches}))
+    return launches
+
+
+def load_deepseek():
+    """deepseek-v3-671b at every published width (d_model 7168, 128 heads,
+    q/kv ranks 1536/512, qk 128 + 64, v 128, 256 experts top-8 of d_ff 2048
+    + 1 shared, dense d_ff 18,432, vocab 129,280) over its 3 dense layers and
+    2 of its 58 MoE layers, with the MTP subtree (materialised, unused by
+    serving), random bf16 weights (the norms, router and route bias float32)
+    from a seeded generator on the card, and eight 512-token prompts."""
+    import dataclasses
+
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+
+    full = registry.get_config(MLA_ARCH)
+    dense, moe = full.blocks
+    cfg = full.with_overrides(blocks=(dense, dataclasses.replace(moe, n_layers=MLA_MOE_LAYERS)))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = materialize(lm.param_spec(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    a = dense.attn
+    latent = (a.kv_lora_rank + a.qk_rope_dim) * 2
+    gqa = a.n_heads * (a.qk_nope_dim + a.qk_rope_dim + a.v_head_dim) * 2
+    log(f"{MLA_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.1f} GB in bf16) of the "
+        f"published {count_params(lm.param_spec(full)) / 1e9:.2f} B, materialized on the "
+        f"card in {time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.1f}"
+        f" GB allocated; reduced: "
+        + json.dumps({"n_layers": f"{full.n_layers} -> {cfg.n_layers}"}))
+    log(f"{MLA_ARCH} cache a token a layer: latent c_kv + k_rope {latent} bytes (bf16) "
+        f"against {gqa} bytes for K and V of {a.n_heads} heads ({gqa / latent:.1f}x)")
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, cfg.vocab, size=(8, 512), dtype=np.int32))
+    return cfg, params, prompts
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Counts the MoE dispatch's assignments and the ones it drops (capped
+    capacity) while it is entered."""
+    from repro_torch.nn import moe
+    tally = {"assignments": 0, "dropped": 0}
+
+    def wrap(fn):
+        def counted(expert_ids, *a, **k):
+            slot, keep = fn(expert_ids, *a, **k)
+            tally["assignments"] += keep.numel()
+            tally["dropped"] += int((~keep).sum())
+            return slot, keep
+        return counted
+    with patched(moe, "dispatch_indices", wrap):
+        yield tally
+
+
+def serve_mla(cfg, params, prompts):
+    """deepseek-v3-671b served through the port's engine on the card over its
+    dense latent cache (``c_kv``/``k_rope`` per slot, no pool: mixed dispatch
+    and prefix sharing off by themselves, no ``paged_attention`` launch on
+    any run, :class:`counting`): the serving phase's 8 prompts of 512
+    tokens, 32 greedy tokens with the engine's defaults; a swap-pressure run
+    at horizon 4 (a pool of 165 blocks, which admits 5 prompts of 33 blocks
+    and then cannot grow them, with a 136-block swap tier, so the latent rows
+    ride the swap ticket); n-gram speculation (K = 4, horizon 4) on prompts
+    tiled from an 8-token pattern against a spec-off run at horizon 4; and
+    the static loop (``serve_static``, whose one-shot prefill routes the MoE
+    with capped capacity, as the reference's does; its drops are counted).
+    Each run's streams are held against its base run, a parting accepted
+    only at a reported near tie.  Then a decode profile with the shares of
+    the latent decompression + ``sdpa`` and of the expert products.
+    Returns each run's ``paged_attention`` launches (all 0)."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.serve import _batch_requests, serve_static
+    from repro_torch.nn import attention
+
+    a = serve(cfg, params, prompts, 32)
+    s1 = a["summary"]
+    if a["launches"] or s1["mixed"]["dispatches"] or s1["prefix"]["hit_tokens"]:
+        raise AssertionError(f"mla serving: kernel launches, mixed dispatches or prefix "
+                             f"hits on a dense latent cache: {a['launches']}, {s1['mixed']}")
+    log("mla serving:", json.dumps({
+        "arch": MLA_ARCH, "layers": cfg.n_layers, "requests": len(prompts), "prompt": 512,
+        "generated": 32, "wall_s": a["wall"],
+        "decode_tokens_per_s": s1["decode_tokens_per_s"], "ttft_s": s1["ttft_s"],
+        "tpot_s": s1["tpot_s"], "prefill_time_s": s1["prefill_time_s"],
+        "decode_dispatches": s1["decode_dispatches"], "decode_steps": s1["decode_steps"],
+        "forwards": a["forwards"], "paged_attn_launches": a["launches"],
+        "peak_memory_gb": a["peak"] / 1e9, "kv_cache_bytes": s1["kv_cache_bytes"]}))
+    swap = serve(cfg, params, prompts, 32, n_blocks=165, swap_blocks=136, horizon=SPEC_H)
+    s = swap["summary"]
+    if s["preemptions"]["swap"] <= 0:
+        raise AssertionError(f"mla swap run: no swap preemption {s['preemptions']}")
+    if s["decode_dispatches"] >= s["decode_steps"]:
+        raise AssertionError("mla swap run: no dispatch ran more than one decode step")
+    n_equal = compare_streams(params, cfg, prompts, a["streams"], swap["streams"],
+                              "mla swap pressure h4 vs the default run")
+    log("mla serving (swap pressure, horizon 4):", json.dumps({
+        "wall_s": swap["wall"], "streams_equal_to_default": n_equal,
+        "preemptions": s["preemptions"], "decode_dispatches": s["decode_dispatches"],
+        "decode_steps": s["decode_steps"], "decode_tokens_per_s": s["decode_tokens_per_s"],
+        "ttft_s": s["ttft_s"], "paged_attn_launches": swap["launches"],
+        "peak_memory_gb": swap["peak"] / 1e9}))
+
+    rng = np.random.default_rng(17)
+    pats = rng.integers(0, cfg.vocab, size=(len(prompts), 8), dtype=np.int32)
+    rep = [np.tile(p, 64) for p in pats]
+    off = serve(cfg, params, rep, 32, horizon=SPEC_H)
+    on = serve(cfg, params, rep, 32, spec_ngram=SPEC_K, horizon=SPEC_H)
+    n_equal = compare_streams(params, cfg, rep, off["streams"], on["streams"],
+                              "mla spec off/on, repetitive traffic")
+    s_on, s_off = on["summary"], off["summary"]
+    if s_on["speculation"]["drafted"] <= 0:
+        raise AssertionError(f"mla spec run drafted nothing: {s_on['speculation']}")
+    log("mla speculative serving:", json.dumps({
+        "traffic": "repetitive", "requests": len(rep), "prompt": 512, "generated": 32,
+        "spec_k": SPEC_K, "horizon": SPEC_H, "streams_equal_to_spec_off": n_equal,
+        "speculation": s_on["speculation"], "tokens_per_dispatch": s_on["tokens_per_dispatch"],
+        "decode_tokens_per_s": s_on["decode_tokens_per_s"], "wall_s": on["wall"],
+        "spec_off_tokens_per_dispatch": s_off["tokens_per_dispatch"],
+        "spec_off_decode_tokens_per_s": s_off["decode_tokens_per_s"],
+        "spec_off_wall_s": off["wall"],
+        "paged_attn_launches": on["launches"] + off["launches"],
+        "peak_memory_gb": max(on["peak"], off["peak"]) / 1e9}))
+
+    static_prompts = [q.prompt for q in _batch_requests(cfg, len(prompts), 512, 32, 0)]
+    if not all(np.array_equal(x, y) for x, y in zip(static_prompts, prompts)):
+        raise AssertionError("serve_static's prompts are not the serving phase's")
+    paged_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with moe_drops() as drops:
+        generated, static_tps = serve_static(cfg, batch=len(prompts), prompt_len=512,
+                                             gen=32, seed=0, params=params, verbose=False)
+    static_wall = time.perf_counter() - t
+    static_launches = paged_attention.launches
+    if static_launches:
+        raise AssertionError(f"the static loop launched paged_attention {static_launches}x")
+    if not ((generated >= 0) & (generated < cfg.vocab)).all():
+        raise AssertionError("serve_static: token out of range")
+    static = {i: [int(x) for x in row] for i, row in enumerate(generated)}
+    n_static = compare_streams(params, cfg, prompts, a["streams"], static,
+                               "mla serve_static vs the engine's default run")
+    log("mla static loop:", json.dumps({
+        "wall_s": static_wall, "decode_tokens_per_s": static_tps,
+        "streams_equal_to_engine": n_static,
+        "moe_assignments": drops["assignments"],
+        "moe_dropped_at_capped_prefill": drops["dropped"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "paged_attn_launches": static_launches}))
+    with ranged(attention, "mla_decompress_attend"):
+        profile_decode(params, cfg, prompts, label="mla decode profile (8 slots, 4 steps "
+                       "each block)", op_shares={
+                           "mla_decompress_attend": lambda e: e.key == "mla_decompress_attend",
+                           "expert_bmm": _is_expert_bmm(cfg)})
+    return {"serve_mla": a["launches"], "serve_mla_swap_h4": swap["launches"],
+            "serve_mla_repetitive_h4": off["launches"], "serve_mla_spec": on["launches"],
+            "serve_mla_static": static_launches}
 
 
 def _free_port() -> int:
@@ -2090,27 +2383,7 @@ def load_hymba():
     return cfg, params, prompts
 
 
-HYMBA_PROMPTS = 8
-
-
-class ssm_ranges:
-    """Wraps every ``ssm_block`` call of the Hymba blocks in a profiler range
-    named ``ssm_block`` (chip_smoke's instrumentation; the port has none)."""
-
-    def __enter__(self):
-        from repro_torch.nn import blocks
-        self._fn = fn = blocks.ssm_block
-
-        def ranged(*a, **k):
-            with torch.profiler.record_function("ssm_block"):
-                return fn(*a, **k)
-        blocks.ssm_block = ranged
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.nn import blocks
-        blocks.ssm_block = self._fn
-        return False
+HYMBA_PROMPTS, HYMBA_COMPARED = 8, 4
 
 
 def ssm_prefill_cost(cfg, params):
@@ -2157,13 +2430,17 @@ def serve_hybrid(cfg, params, prompts):
     The three global layers run on the paged pool and launch
     ``paged_attention`` once each a decode-carrying forward (G = 5, D = 64);
     the window layers' rings and the SSM run plain PyTorch on the card.  The
-    streams are held against the same traffic with ``paged=False`` (the
-    global layers on dense caches and plain sdpa, no launch), under swap
-    pressure (a pool of 485 blocks, which admits 5 prompts of 97 blocks and
-    then cannot grow them, with a 320-block swap tier) and at horizon 4,
-    a parting accepted only at a reported near tie.  Then a decode profile
+    first ``HYMBA_COMPARED`` streams are held against the same prompts
+    served with ``paged=False`` (the global layers on dense caches and plain
+    sdpa, no launch), under swap pressure (a pool of 291 blocks, which
+    admits 3 prompts of 97 blocks and then cannot grow them, with a
+    320-block swap tier) and at horizon 4, a parting accepted only at a
+    reported near tie (fewer prompts than the base run: the prefill's
+    per-token SSM scan makes each run host-bound).  Then a decode profile
     (device busy share, the SSM's and ``paged_attn``'s shares) and the
     per-token cost of the SSM scan at prefill.  Returns each run's launches."""
+    from repro_torch.nn import blocks
+
     a = serve(cfg, params, prompts, 64, max_len=2048, timed=True)
     s1 = a["summary"]
     chunk_ms = [t * 1e3 for t in a["times"]["_prefill"]]
@@ -2179,10 +2456,12 @@ def serve_hybrid(cfg, params, prompts):
             "launches_per_forward": a["launches"] / a["forwards"],
             "peak_memory_gb": a["peak"] / 1e9, "kv_cache_bytes": s1["kv_cache_bytes"]}
     log("hybrid serving:", json.dumps(line))
-    runs = {"dense": serve(cfg, params, prompts, 64, max_len=2048, paged=False),
-            "swap": serve(cfg, params, prompts, 64, max_len=2048, n_blocks=485,
+    few = prompts[:HYMBA_COMPARED]
+    base = {rid: a["streams"][rid] for rid in range(HYMBA_COMPARED)}
+    runs = {"dense": serve(cfg, params, few, 64, max_len=2048, paged=False),
+            "swap": serve(cfg, params, few, 64, max_len=2048, n_blocks=291,
                           swap_blocks=320),
-            "h4": serve(cfg, params, prompts, 64, max_len=2048, horizon=4)}
+            "h4": serve(cfg, params, few, 64, max_len=2048, horizon=4)}
     if runs["swap"]["summary"]["preemptions"]["swap"] <= 0:
         raise AssertionError(f"hybrid swap run: no swap preemption "
                              f"{runs['swap']['summary']['preemptions']}")
@@ -2191,7 +2470,7 @@ def serve_hybrid(cfg, params, prompts):
         raise AssertionError("hybrid horizon 4: no dispatch ran more than one decode step")
     for what, r in runs.items():
         s = r["summary"]
-        n_equal = compare_streams(params, cfg, prompts, a["streams"], r["streams"],
+        n_equal = compare_streams(params, cfg, prompts, base, r["streams"],
                                   f"hybrid {what} vs the default run")
         log(f"hybrid serving ({what}):", json.dumps({
             "wall_s": r["wall"], "streams_equal_to_default": n_equal,
@@ -2200,7 +2479,7 @@ def serve_hybrid(cfg, params, prompts):
             "decode_steps": s["decode_steps"], "kv_cache_bytes": s["kv_cache_bytes"],
             "forwards": r["forwards"], "paged_attn_launches": r["launches"],
             "peak_memory_gb": r["peak"] / 1e9}))
-    with ssm_ranges():
+    with ranged(blocks, "ssm_block"):
         profile_decode(params, cfg, prompts, max_len=2048,
                        label="hybrid decode profile (8 slots, 4 steps each block)",
                        op_shares={"ssm": lambda e: e.key == "ssm_block"})
@@ -2216,14 +2495,16 @@ def serve_hybrid(cfg, params, prompts):
 
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
-            "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid")
+            "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
+            "mla_card", "serve_mla")
 
 
 def run_picked(picked, name, smi):
     """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
     checked row counts it needs; ``serve_spec`` and ``serve_dense`` the
     paged run of the serving traffic they are held against; ``serve_moe``
-    the small models' card-vs-CPU check); no kernels line."""
+    and ``serve_mla`` the small models' card-vs-CPU check); no kernels
+    line."""
     if "paged_attn" in picked:
         check_paged_attn()
     if "act_pool" in picked:
@@ -2252,9 +2533,16 @@ def run_picked(picked, name, smi):
     if "serve_hybrid" in picked:
         serve_hybrid(*load_hymba())
         free_device_memory()
-    if "serve_moe" in picked:
+    if picked & {"serve_moe", "serve_mla"}:
         small_model_card_vs_cpu()
+    if "serve_moe" in picked:
         serve_moe(*load_qwen3())
+        free_device_memory()
+    if "mla_card" in picked:
+        mla_card_vs_cpu()
+        free_device_memory()
+    if "serve_mla" in picked:
+        serve_mla(*load_deepseek())
     log(smi)
     log(json.dumps({"ok": True, "phases": sorted(picked),
                     "device": {"platform": "gpu", "kind": name,
@@ -2331,6 +2619,16 @@ def main(argv=None):
     del moe_params
     free_device_memory()
     log(f"serve_moe phase: {time.perf_counter() - t_moe:.1f} s")
+    t_mla = time.perf_counter()
+    paged_launches["mla_card_vs_cpu"] = mla_card_vs_cpu()
+    free_device_memory()
+    log(f"mla_card phase: {time.perf_counter() - t_mla:.1f} s")
+    t_mla = time.perf_counter()
+    mla_cfg, mla_params, mla_prompts = load_deepseek()
+    paged_launches.update(serve_mla(mla_cfg, mla_params, mla_prompts))
+    del mla_params
+    free_device_memory()
+    log(f"serve_mla phase: {time.perf_counter() - t_mla:.1f} s")
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
                    "serve_sc": odin["sc"]["sc_mac_launches"]}
     int8_launches = kernel_bench()

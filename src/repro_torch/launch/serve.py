@@ -17,6 +17,9 @@ Usage:
       --listen --port 8080 --max-queue 32 --tenant-rate 50
   # Hymba (sliding-window rings + SSM state, global layers on the pool):
   python -m repro_torch.launch.serve --arch hymba-1.5b --smoke --device cpu
+  # DeepSeek-V3 (MLA's compressed latent cache per slot, MoE with a shared
+  # expert; mixed dispatch and prefix sharing turn off by themselves):
+  python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
   # the static-batch loop over dense caches (the engine's parity baseline):
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu --static
 

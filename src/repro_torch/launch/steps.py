@@ -394,8 +394,9 @@ def speculable(cfg: ModelConfig) -> bool:
     """Whether the config supports n-gram self-speculative serving decode.
 
     Rollback of rejected draft rows is a length decrement, sound exactly when
-    every piece of decode state is position-addressed (paged pool blocks:
-    stale rows past the length are invisible to every later query).
+    every piece of decode state is position-addressed (paged pool blocks,
+    dense K/V rows, MLA's latent rows: stale rows past the length are
+    invisible to every later query).
     Recurrent state advances per token and cannot be truncated, and
     multi-codebook frames have no scalar n-gram to match."""
     return cfg.n_codebooks == 1 and all(

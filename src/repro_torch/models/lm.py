@@ -1,8 +1,12 @@
-"""Decoder LM over stacked layer segments (dense, MoE and Hymba stacks).
+"""Decoder LM over stacked layer segments (dense, MoE and Hymba stacks, GQA
+or MLA attention).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
 package; a Python loop over the layers takes the place of its ``lax.scan``
-(no rematerialisation: the port only runs inference).
+(no rematerialisation: the port only runs inference).  DeepSeek's
+multi-token-prediction subtree (``mtp``) is built and carried as the
+reference builds it; only its training loss reads it, and serving never
+does.
 """
 from __future__ import annotations
 
@@ -40,9 +44,9 @@ def _odin(cfg: ModelConfig) -> Optional[OdinConfig]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks > 1 or cfg.vision_stub or cfg.mtp:
+    if cfg.n_codebooks > 1 or cfg.vision_stub:
         raise NotImplementedError(
-            f"{cfg.name}: multi-codebook, vision-stub and MTP models are not "
+            f"{cfg.name}: multi-codebook and vision-stub models are not "
             "ported yet (see ROADMAP.md)")
 
 
@@ -60,6 +64,13 @@ def param_spec(cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         spec["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                                     init="fan_in")
+    if cfg.mtp:
+        spec["mtp"] = {
+            "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("embed", "embed2"),
+                              init="fan_in"),
+            "norm": norm_spec(cfg.d_model),
+            "block": block_spec(cfg.blocks[0], cfg.d_model),
+        }
     return spec
 
 
@@ -128,8 +139,8 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 attn_override=None, device=None):
     """Stacked per-segment decode caches (``dtype`` defaults to the config's
-    ``kv_dtype``): dense or ring-buffer attention caches with a scalar
-    ``pos``, and a Hymba segment's SSM state.  ``attn_override(block_cfg)``
+    ``kv_dtype``): dense, ring-buffer or MLA latent attention caches with a
+    scalar ``pos``, and a Hymba segment's SSM state.  ``attn_override(block_cfg)``
     returns a segment's attention cache instead (the serving layer passes
     the paged block pool) or None to keep the dense one; an overridden
     dense cache is never built."""

@@ -16,6 +16,7 @@ _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,6 +1,7 @@
-"""Attention: GQA over the paged physical KV pool and the dense caches.
+"""Attention: GQA over the paged physical KV pool and the dense caches, and
+DeepSeek's multi-head latent attention (MLA) over its compressed cache.
 
-The port of the JAX package's ``nn/attention.py``, GQA only:
+The port of the JAX package's ``nn/attention.py``:
 
 * the physical block pool ``k_pool/v_pool [n_blocks+1, block_size, H_kv, D]``
   is shared by every serving slot; per-slot block ``tables`` map logical
@@ -12,15 +13,20 @@ The port of the JAX package's ``nn/attention.py``, GQA only:
 * the dense cache ``k/v [B, S_max, H_kv, D]`` or, with ``window > 0``, a
   ring buffer of ``window`` rows (``init_cache``), with a scalar ``pos``
   (static batch) or a per-slot ``pos [B]`` (serving); these run the plain
-  ``sdpa`` core, as the JAX package runs jnp there.
+  ``sdpa`` core, as the JAX package runs jnp there;
+* MLA caches the normed latent ``c_kv [B, S_max, kv_lora_rank]`` and the
+  shared RoPE key ``k_rope [B, S_max, qk_rope_dim]`` (``init_cache``), a
+  scalar or per-slot ``pos`` as the dense cache, and decompresses the whole
+  cache through ``k_up``/``v_up`` for every forward before the plain
+  ``sdpa`` core (the reference's algorithm).
 
 K/V rows are written into the pool **in place** (the JAX package returns a
 new pool array; here the cache tensors are updated where they lie, which
 saves a pool-sized copy per layer).  The returned cache dict holds the same
 pool tensors and a new ``pos`` vector.  Dense and ring rows are written
-**out of place**, as the JAX package writes them: the serving steps merge
-each slot's old and new cache by its activity mask, which needs both.  MLA
-and M-RoPE are not ported yet.
+**out of place**, as the JAX package writes them, and so are MLA's latent
+rows: the serving steps merge each slot's old and new cache by its activity
+mask, which needs both.  M-RoPE is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.paged_attn import paged_attention
-from repro_torch.nn.layers import apply_rope, linear, linear_spec
+from repro_torch.nn.layers import apply_rope, linear, linear_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
 
 __all__ = ["attn_spec", "attention", "init_cache", "init_paged_cache", "sdpa",
@@ -69,9 +75,24 @@ def _cache_read(x: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attn_spec(cfg: AttnConfig, d_model: int) -> Dict[str, ParamSpec]:
-    if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind} attention")
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if cfg.kind == "mla":
+        qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+        spec = {
+            "kv_down": linear_spec(d_model, cfg.kv_lora_rank + cfg.qk_rope_dim, ("embed", None)),
+            "kv_norm": ParamSpec((cfg.kv_lora_rank,), (None,), torch.float32, init="ones"),
+            "k_up": linear_spec(cfg.kv_lora_rank, H * cfg.qk_nope_dim, (None, "heads_flat")),
+            "v_up": linear_spec(cfg.kv_lora_rank, H * cfg.v_head_dim, (None, "heads_flat")),
+            "o": linear_spec(H * cfg.v_head_dim, d_model, ("heads_flat", "embed")),
+        }
+        if cfg.q_lora_rank:
+            spec["q_down"] = linear_spec(d_model, cfg.q_lora_rank, ("embed", None))
+            spec["q_norm"] = ParamSpec((cfg.q_lora_rank,), (None,), torch.float32,
+                                       init="ones")
+            spec["q_up"] = linear_spec(cfg.q_lora_rank, H * qk_dim, (None, "heads_flat"))
+        else:
+            spec["q"] = linear_spec(d_model, H * qk_dim, ("embed", "heads_flat"))
+        return spec
     return {
         "q": linear_spec(d_model, H * D, ("embed", "heads_flat")),
         "k": linear_spec(d_model, Hkv * D, ("embed", "heads_flat")),
@@ -82,17 +103,25 @@ def attn_spec(cfg: AttnConfig, d_model: int) -> Dict[str, ParamSpec]:
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """Dense decode cache of one GQA layer: ``k/v [batch, size, H_kv, D]``
-    with ``size = window`` (a ring buffer) or ``max_len``, and a scalar
-    ``pos``."""
-    if cfg.kind != "gqa":
-        raise _not_ported(f"the {cfg.kind} cache")
+    """Dense decode cache of one layer with a scalar ``pos``: for GQA
+    ``k/v [batch, size, H_kv, D]`` with ``size = window`` (a ring buffer) or
+    ``max_len``; for MLA the compressed ``c_kv [batch, max_len,
+    kv_lora_rank]`` and ``k_rope [batch, max_len, qk_rope_dim]``."""
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.kind == "mla":
+        return {
+            "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                                  device=device),
+            "pos": pos,
+        }
     size = cfg.window if cfg.window else max_len
     shape = (batch, size, cfg.n_kv_heads, cfg.d_head)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "pos": pos,
     }
 
 
@@ -316,6 +345,28 @@ def _put_rows(cache, dst, new):
     return out[:, :size]
 
 
+def _chunk_rows(pos, idx, S: int, size: int, ring: bool = False):
+    """(rows, nxt): the cache rows that the chunk's rows ``idx`` (of ``S``)
+    at ``pos`` go to, and the length after the chunk.  A per-slot ``pos
+    [B]`` gives rows ``[B, len(idx)]`` (those past the cache are dropped by
+    :func:`_put_rows`) and ``nxt [B, 1]``; a scalar ``pos`` gives rows
+    ``[1, len(idx)]`` from a start clamped as ``dynamic_update_slice``
+    clamps it (not for a ring, whose rows wrap) and a scalar ``nxt``."""
+    if pos.ndim:
+        return pos[:, None] + idx, (pos + S)[:, None]
+    if not ring and S > size:
+        raise ValueError(f"a chunk of {S} rows does not fit a cache of {size}")
+    start = pos if ring else torch.clamp(pos, 0, size - S)
+    return (start + idx)[None, :], pos + S
+
+
+def _visible_rows(nxt, size: int, device):
+    """Positions of a dense cache's rows: row ``j`` where ``j < nxt``, else
+    2^30 (invisible to every query)."""
+    slot_rows = torch.arange(size, dtype=torch.int32, device=device)
+    return torch.where(slot_rows < nxt, slot_rows, 2**30).to(torch.int32)
+
+
 def _dense_gqa_core(q, k, v, cfg: AttnConfig, positions, cache):
     """Write the new K/V rows into a dense or ring-buffer cache and attend
     over it: the four cases of the JAX package's ``_gqa_attention``.
@@ -339,21 +390,12 @@ def _dense_gqa_core(q, k, v, cfg: AttnConfig, positions, cache):
     idx = torch.arange(S, dtype=torch.int32, device=q.device)
     if cfg.window and S > size:
         kw, vw, idx = kw[:, S - size:], vw[:, S - size:], idx[S - size:]
-    slot_rows = torch.arange(size, dtype=torch.int32, device=q.device)
-    if pos.ndim:
-        rows = pos[:, None] + idx                                  # [B, S]
-        nxt = (pos + S)[:, None]
-    else:
-        if not cfg.window and S > size:
-            raise ValueError(f"a chunk of {S} rows does not fit a cache of {size}")
-        start = pos if cfg.window else torch.clamp(pos, 0, size - S)
-        rows = (start + idx)[None, :]                              # [1, S]
-        nxt = pos + S
+    rows, nxt = _chunk_rows(pos, idx, S, size, ring=bool(cfg.window))
     if cfg.window:
         rows = rows % size
         k_pos = _ring_positions(nxt, size)
     else:
-        k_pos = torch.where(slot_rows < nxt, slot_rows, 2**30).to(torch.int32)
+        k_pos = _visible_rows(nxt, size, q.device)
     ck, cv = _put_rows(cache["k"], rows, kw), _put_rows(cache["v"], rows, vw)
     o = sdpa(q, _cache_read(ck, q.dtype), _cache_read(cv, q.dtype), positions,
              k_pos.expand(B, size), cfg.window)
@@ -385,16 +427,78 @@ def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
     return linear(o, p["o"], odin), new_cache
 
 
+# ---------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg: AttnConfig,
+                          positions, k_pos, odin=None):
+    """Decompress latent rows ``c_kv [B, Sk, r]`` through ``k_up``/``v_up``
+    into per-head ``K_nope`` and ``V``, append the shared ``k_rope [B, Sk,
+    qk_rope_dim]`` to every head's key and attend with the plain ``sdpa``
+    core (scale ``1/sqrt(qk_nope + qk_rope)``).  The reference decompresses
+    the whole cache every forward; absorbing ``k_up`` into the query would
+    not, and is a speed-up the reference lacks.  Returns ``[B, S, H,
+    v_head_dim]``."""
+    B, H = q_nope.shape[0], cfg.n_heads
+    k_nope = linear(c_kv, p["k_up"], odin).reshape(B, -1, H, cfg.qk_nope_dim)
+    v = linear(c_kv, p["v_up"], odin).reshape(B, -1, H, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return sdpa(q, k, v, positions, k_pos, cfg.window)
+
+
+def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):
+    """DeepSeek-V3 multi-head latent attention with the compressed cache:
+    low-rank Q (``q_down``, its norm, ``q_up``) or one ``q`` projection; the
+    latent ``c_kv`` normed and ``k_rope`` rotated *before* they are cached.
+    The latent rows are written as the dense GQA rows are (a scalar ``pos``
+    with ``dynamic_update_slice``'s start clamp, or per slot with rows past
+    the cache dropped; int8 through ``_cache_write``), out of place, then
+    the whole cache is decompressed and attended
+    (:func:`mla_decompress_attend`).  Both norms take ``rmsnorm``'s default
+    eps, as the reference's do."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if "q_down" in p:
+        cq = rmsnorm(linear(x, p["q_down"], odin), p["q_norm"])
+        q = linear(cq, p["q_up"], odin).reshape(B, S, H, qk_dim)
+    else:
+        q = linear(x, p["q"], odin).reshape(B, S, H, qk_dim)
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+
+    kv = linear(x, p["kv_down"], odin)
+    c_kv = rmsnorm(kv[..., :cfg.kv_lora_rank], p["kv_norm"])
+    k_rope = apply_rope(kv[:, :, None, cfg.kv_lora_rank:], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None:
+        new_cache, k_pos = None, positions
+    else:
+        pos = cache["pos"]
+        size = cache["c_kv"].shape[1]
+        cdt = cache["c_kv"].dtype
+        idx = torch.arange(S, dtype=torch.int32, device=x.device)
+        rows, nxt = _chunk_rows(pos, idx, S, size)
+        c_kv_q = _put_rows(cache["c_kv"], rows, _cache_write(c_kv, cdt))
+        k_rope_q = _put_rows(cache["k_rope"], rows, _cache_write(k_rope, cdt))
+        k_pos = _visible_rows(nxt, size, x.device).expand(B, size)
+        new_cache = {"c_kv": c_kv_q, "k_rope": k_rope_q, "pos": pos + S}
+        c_kv, k_rope = _cache_read(c_kv_q, x.dtype), _cache_read(k_rope_q, x.dtype)
+    o = mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, k_pos, odin)
+    return linear(o.reshape(B, S, H * cfg.v_head_dim), p["o"], odin), new_cache
+
+
 def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
               tables=None, spec_decode: bool = False, q_lens=None, q_decode=None):
     """Returns (output [B,S,d_model], new_cache).  ``tables`` are the per-slot
-    block tables of the paged serving cache (ignored by dense caches);
-    ``spec_decode``, ``q_lens`` and ``q_decode`` as in
-    :func:`_paged_gqa_core` (a dense cache already attends an S-token tile
-    with decode semantics)."""
+    block tables of the paged serving cache (ignored by dense and MLA
+    caches); ``spec_decode``, ``q_lens`` and ``q_decode`` as in
+    :func:`_paged_gqa_core` (a dense or MLA cache already attends an S-token
+    tile with decode semantics)."""
     B, S, _ = x.shape
-    if cfg.kind != "gqa":
-        raise _not_ported(f"{cfg.kind} attention")
     if q_lens is not None and (cache is None or "k_pool" not in cache):
         raise ValueError("q_lens (mixed dispatch) requires a paged GQA cache")
     if positions is None:
@@ -403,5 +507,7 @@ def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
             start = start[:, None]
         positions = (start + torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
                      + torch.zeros((B, 1), dtype=torch.int32, device=x.device))
+    if cfg.kind == "mla":
+        return _mla_attention(p, x, cfg, positions, cache, odin)
     return _gqa_attention(p, x, cfg, positions, cache, odin, tables,
                           spec_decode=spec_decode, q_lens=q_lens, q_decode=q_decode)

@@ -1,8 +1,9 @@
 """Transformer blocks: the dense, MoE and Hymba branches of the JAX
-package's ``nn/blocks.py``.  Dense and MoE blocks are attention + MLP or
-mixture of experts; a Hymba block runs attention and a selective SSM in
-parallel on the same input and fuses them through per-branch output norms
-and a learned per-channel mix.  xLSTM blocks are not ported yet.
+package's ``nn/blocks.py``.  Dense and MoE blocks are attention (GQA or
+MLA) + MLP or mixture of experts; a Hymba block runs attention and a
+selective SSM in parallel on the same input and fuses them through
+per-branch output norms and a learned per-channel mix.  xLSTM blocks are
+not ported yet.
 """
 from __future__ import annotations
 

@@ -53,7 +53,42 @@ def test_configs_are_the_reference_configs(which):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_smoke("deepseek-v3-671b")
+        tregistry.get_smoke("xlstm-350m")
+
+
+@pytest.mark.parametrize("init", ["normal", "fan_in"])
+def test_materialize_draws_large_leaves_in_pieces(init, monkeypatch):
+    """A leaf whose float32 draw passes ``MAX_DRAW_BYTES`` is drawn in pieces
+    of whole rows along its leading axes, none larger than the limit: the
+    leaf keeps its shape and dtype, every row is filled, and the values
+    keep the init's standard deviation (``normal`` 0.02, ``fan_in``
+    1/sqrt(fan_in)).  Within the limit the leaf equals one whole draw."""
+    spec = {"w": tmodule.ParamSpec((3, 5, 64, 48), ("layers", "experts", "embed", "mlp"),
+                                   torch.bfloat16, init=init)}
+    limit = 4 * 2 * 64 * 48 - 4        # below one [64, 48] block: pieces of rows
+    draws, randn = [], torch.randn
+
+    def recorded(shape, **kw):
+        draws.append(tuple(shape))
+        return randn(shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", recorded)
+    monkeypatch.setattr(tmodule, "MAX_DRAW_BYTES", limit)
+    w = tmodule.materialize(spec, torch.Generator().manual_seed(0), "cpu")["w"]
+    assert w.shape == (3, 5, 64, 48) and w.dtype == torch.bfloat16
+    assert len(draws) > 1 and all(4 * np.prod(d) <= limit for d in draws)
+    assert sum(np.prod(d) for d in draws) == w.numel()
+    std = 0.02 if init == "normal" else 1 / np.sqrt(3 * 5 * 64)
+    x = w.float()
+    assert abs(x.std().item() / std - 1) < 0.02 and abs(x.mean().item()) < 0.02 * std
+    assert bool((x.reshape(-1, 48).std(dim=1) > 0.5 * std).all())
+    # within the limit the leaf is one draw: the whole leaf's N(0, 1) values
+    # from the same seed, scaled and cast
+    monkeypatch.setattr(tmodule, "MAX_DRAW_BYTES", 4 * w.numel())
+    w = tmodule.materialize(spec, torch.Generator().manual_seed(0), "cpu")["w"]
+    whole = randn((3, 5, 64, 48), generator=torch.Generator().manual_seed(0))
+    assert w.shape == (3, 5, 64, 48) and w.dtype == torch.bfloat16
+    assert torch.equal(w, whole.mul_(std).to(torch.bfloat16))
 
 
 def _flat(tree):

@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    the page axis, then a combine pass) at the serving path's shapes (decode,
    and the speculative phase's 5-token verify tile, at phi4's 3 query heads
    a KV head and at qwen3-moe's 16, whose launch plan cuts a head's rows
-   into 4 and 20 chunks, and hymba's global layers' decode at G = 5, D = 64
-   over 1536-1600 tokens, 2 chunks of 3 rows), one long slot, 64
+   into 4 and 20 chunks, hymba's global layers' decode at G = 5, D = 64
+   over 1536-1600 tokens, 2 chunks of 3 rows, and nemotron-4-15b's G = 6
+   at D = 128, 2 and 10 chunks of 3 rows), one long slot, 64
    slots that the plan does not split, and window and verify cases whose
    plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
@@ -40,9 +41,10 @@ Phases, each fatal on failure:
    8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
    yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
    on the card) against the CPU's int32 matmul;
-3. check three small models end to end, dense, MoE and the deepseek-v3
-   smoke config (MLA + MoE): the engine on the card (CUDA kernel) and on the
-   CPU (plain path) must emit the same greedy tokens in float32;
+3. check four small models end to end, dense, MoE, relu² at G = 6 and
+   the deepseek-v3 smoke config (MLA + MoE): the engine on the card (CUDA
+   kernel) and on the CPU (plain path) must emit the same greedy tokens in
+   float32;
 4. serve full-width phi4-mini-3.8b (all 32 layers, random bf16 weights from a
    seeded generator) through the port's ServingEngine with its defaults
    (mixed dispatch, prefix sharing) and show that every forward that carried
@@ -79,7 +81,7 @@ Phases, each fatal on failure:
    float32); then hymba-1.5b at every width and all 32 layers (random bf16
    weights): 8 prompts of 1536 tokens past the 1024-token window, 64 greedy
    tokens, ``paged_attention`` launched once a decode-carrying forward by
-   each of the three global layers; its first 4 prompts held against
+   each of the three global layers; its first 2 prompts held against
    ``paged=False``, a swap pressure run and horizon 4; a decode profile with the SSM's and
    ``paged_attn``'s shares; the per-token cost of the SSM scan at prefill;
 9. serve qwen3-moe-235b-a22b at every published width over 8 of its 94
@@ -102,15 +104,32 @@ Phases, each fatal on failure:
    against a spec-off run, and the static loop, each held against its
    base run; a decode profile with the latent decompression's and the
    expert products' shares;
-11. run the paper's experiment at full width (``launch/odin_inference``):
+11. xLSTM: xlstm-350m's widths over 1 mLSTM + 1 sLSTM layer, float32:
+   the logits of a 2 x 600-token prefill (the chunkwise form over a padded
+   second chunk) and 3 decode steps on the card within ``XLSTM_CARD_TOL``
+   of the CPU plain path, and moved past it when the sLSTM's ``out`` is
+   zeroed; then xlstm-350m at every width and all 24 layers (random bf16
+   weights, 229.09 M parameters): 8 prompts of 2048 tokens + 64, held
+   against horizon 4 and swap pressure (on 2 of them; the cell state in
+   the swap ticket); the static loop held against the engine in float32 (2
+   prompts); one prompt of 16,384 tokens + 32 beside it (prefill
+   ms a token, peak memory); a decode profile with the mLSTM's and sLSTM's
+   shares; no ``paged_attention`` launch on any xLSTM path;
+12. nemotron-4-15b at every width and all 32 layers (random bf16 weights,
+   31.3 GB): 8 prompts of 512 tokens + 32 with the engine's defaults,
+   ``paged_attention`` at G = 6 once a layer a decode-carrying forward; a
+   decode profile with ``paged_attn``'s share;
+13. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-12. run the kernel bench entry point (``launch/kernel_bench``), the path of
+14. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
+
+Each phase's seconds are printed.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; the kernels line gives each kernel's total and, where it has more
@@ -119,8 +138,9 @@ than one path, the count of each.
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
 odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
-serve_hybrid,mla_card,serve_mla`` (any subset) runs only those checks, for a focused
-call, and prints no kernels line.
+serve_hybrid,mla_card,serve_mla,xlstm_card,serve_xlstm,serve_nemotron`` (any
+subset) runs only those checks, for a focused call, and prints no kernels
+line.
 """
 from __future__ import annotations
 
@@ -400,10 +420,18 @@ def check_paged_attn():
         # tokens in 100 pages of 16
         attn_case("decode_hymba_g5_d64_bf16", H=25, Hkv=5, D=64, P=100,
                   lengths=(1536, 1600), copies=8, seed=12),
+        # nemotron-4-15b's serving shapes: 48 query heads over 8 KV heads
+        # (G = 6) of 128, decode and the Q = 5 verify tile (30 rows a head),
+        # 8 slots of 512-576 tokens
+        attn_case("decode_nemotron_g6_bf16", H=48, Hkv=8, lengths=(512, 576), copies=4,
+                  seed=13),
+        attn_case("verify_q5_nemotron_g6_bf16", Q=5, H=48, Hkv=8, lengths=(512, 576),
+                  copies=4, seed=14),
     ]
     # row chunks of the launch plan, each re-reading its split's pages
     expect_chunks = {"decode_qwen3_g16_bf16": 4, "verify_q5_qwen3_g16_bf16": 20,
-                     "decode_hymba_g5_d64_bf16": 2}
+                     "decode_hymba_g5_d64_bf16": 2, "decode_nemotron_g6_bf16": 2,
+                     "verify_q5_nemotron_g6_bf16": 10}
     # cases whose plan must leave CTAs with no visible key (exact empty partials)
     need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
     lines = {}
@@ -494,10 +522,11 @@ def check_paged_attn():
 # ---------------------------------------------------------------------------
 
 def small_model_card_vs_cpu():
-    """2-layer models with the kernel's head dim, dense and MoE, and the
-    deepseek-v3 smoke config (MLA + MoE, 3 layers): greedy streams of the
-    engine on the card (CUDA kernel; plain PyTorch on the card for MLA)
-    equal those on the CPU (plain path), in float32."""
+    """2-layer models with the kernel's head dim, dense and MoE, a 2-layer
+    relu² model at nemotron's G = 6 and D = 128, and the deepseek-v3 smoke
+    config (MLA + MoE, 3 layers): greedy streams of the engine on the card
+    (CUDA kernel; plain PyTorch on the card for MLA) equal those on the CPU
+    (plain path), in float32."""
     from repro_torch.configs.base import AttnConfig, BlockConfig, ModelConfig, MoEConfig
     from repro_torch.models import lm, registry
     from repro_torch.nn.module import materialize
@@ -508,9 +537,12 @@ def small_model_card_vs_cpu():
     blocks = {"dense": BlockConfig(kind="dense", n_layers=2, d_ff=512, attn=attn),
               "moe": BlockConfig(kind="moe", n_layers=2, attn=attn,
                                  moe=MoEConfig(n_experts=8, top_k=2, d_ff=128,
-                                               aux_free_bias=False))}
+                                               aux_free_bias=False)),
+              "relu2_g6": BlockConfig(kind="dense", n_layers=2, d_ff=512, activation="relu2",
+                                      attn=AttnConfig(n_heads=12, n_kv_heads=2, d_head=128))}
     spec = WorkloadSpec(n_requests=5, rate=1e9, prompt_buckets=(24, 40), gen_buckets=(8, 20))
-    cfgs = {kind: ModelConfig(name=f"smoke-{kind}-d64", d_model=256, vocab=512,
+    cfgs = {kind: ModelConfig(name=f"smoke-{kind}-d{block.attn.d_head}", d_model=256,
+                              vocab=512,
                               kv_dtype="float32", blocks=(block,))
             for kind, block in blocks.items()}
     cfgs["mla"] = registry.get_smoke(MLA_ARCH).with_overrides(kv_dtype="float32")
@@ -2383,7 +2415,7 @@ def load_hymba():
     return cfg, params, prompts
 
 
-HYMBA_PROMPTS, HYMBA_COMPARED = 8, 4
+HYMBA_PROMPTS, HYMBA_COMPARED = 8, 2
 
 
 def ssm_prefill_cost(cfg, params):
@@ -2432,8 +2464,8 @@ def serve_hybrid(cfg, params, prompts):
     the window layers' rings and the SSM run plain PyTorch on the card.  The
     first ``HYMBA_COMPARED`` streams are held against the same prompts
     served with ``paged=False`` (the global layers on dense caches and plain
-    sdpa, no launch), under swap pressure (a pool of 291 blocks, which
-    admits 3 prompts of 97 blocks and then cannot grow them, with a
+    sdpa, no launch), under swap pressure (a pool of 194 blocks, which
+    admits 2 prompts of 97 blocks and then cannot grow them, with a
     320-block swap tier) and at horizon 4, a parting accepted only at a
     reported near tie (fewer prompts than the base run: the prefill's
     per-token SSM scan makes each run host-bound).  Then a decode profile
@@ -2459,7 +2491,7 @@ def serve_hybrid(cfg, params, prompts):
     few = prompts[:HYMBA_COMPARED]
     base = {rid: a["streams"][rid] for rid in range(HYMBA_COMPARED)}
     runs = {"dense": serve(cfg, params, few, 64, max_len=2048, paged=False),
-            "swap": serve(cfg, params, few, 64, max_len=2048, n_blocks=291,
+            "swap": serve(cfg, params, few, 64, max_len=2048, n_blocks=194,
                           swap_blocks=320),
             "h4": serve(cfg, params, few, 64, max_len=2048, horizon=4)}
     if runs["swap"]["summary"]["preemptions"]["swap"] <= 0:
@@ -2493,18 +2525,317 @@ def serve_hybrid(cfg, params, prompts):
             "serve_hybrid_h4": runs["h4"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# xLSTM (xlstm-350m) and the dense GQA configs (nemotron-4-15b)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH, NEMOTRON_ARCH = "xlstm-350m", "nemotron-4-15b"
+XLSTM_PROMPT, XLSTM_GEN, XLSTM_MAX_LEN = 2048, 64, 4096
+XLSTM_LONG_PROMPT, XLSTM_LONG_GEN = 16_384, 32
+# |card - CPU| bound on xlstm_card's float32 logits: 2.9x the worst measured
+# on an H100 80GB HBM3 at 700 W, 1.37e-4 in the padded 600-token prefill (PERF.md §6)
+XLSTM_CARD_TOL = 4e-4
+# prompts of the base run that the horizon-4 and swap-pressure runs serve
+XLSTM_COMPARED = 2
+
+
+def xlstm_card_vs_cpu():
+    """xlstm-350m at every published width (d_model 1024, 4 heads of 256,
+    vocab 50,304) over 1 mLSTM and 1 sLSTM layer, float32 weights from a
+    seeded generator on the host and their copy on the card: the logits of a
+    one-shot prefill of 2 slots x 600 tokens (past the 512-token chunk, so
+    the chunkwise form runs a padded second chunk) and of 3 decode steps
+    (the token scans) on serving caches agree within ``XLSTM_CARD_TOL``.
+    Zeroing the sLSTM's ``out`` projection on the card must move the logits
+    past that bound (the check sees the sLSTM).  No ``paged_attention``
+    launch.  Returns the card run's launches (0)."""
+    import dataclasses
+
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.steps import init_serving_caches
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+    from repro_torch.tree import tree_map
+
+    full = registry.get_config(XLSTM_ARCH)
+    mlstm, slstm = full.blocks[0], full.blocks[1]
+    cfg = full.with_overrides(kv_dtype="float32", blocks=(
+        dataclasses.replace(mlstm, n_layers=1), dataclasses.replace(slstm, n_layers=1)))
+    spec = tree_map(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                    lm.param_spec(cfg))
+    t0 = time.perf_counter()
+    host = materialize(spec, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.cuda(), host)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    B, S, steps = 2, 600, 3
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(steps, B, 1), dtype=np.int32))
+
+    def logits(p, dev):
+        caches = init_serving_caches(cfg, B, 1024, device=dev)
+        out, caches, _ = lm.forward(p, prompt.to(dev), cfg, caches=caches)
+        outs = [out]
+        for i in range(steps):
+            start = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+            out, caches, _ = lm.forward(p, toks[i].to(dev), cfg, caches=caches,
+                                        start_pos=start)
+            outs.append(out)
+        return torch.cat(outs, dim=1).cpu()              # [B, S + steps, V]
+
+    paged_attention.launches = 0
+    t = time.perf_counter()
+    on_card = logits(card, "cuda")
+    card_s = time.perf_counter() - t
+    launches = paged_attention.launches
+    t = time.perf_counter()
+    on_cpu = logits(host, "cpu")
+    cpu_s = time.perf_counter() - t
+    if launches:
+        raise AssertionError(f"xlstm card check: paged_attention launched {launches}x")
+    if not bool(torch.isfinite(on_card).all()):
+        raise AssertionError("xlstm card check: non-finite logits on the card")
+    err = (on_card - on_cpu).abs()
+    by_part = {"prefill": err[:, :S].max().item(), "decode": err[:, S:].max().item()}
+    if err.max().item() > XLSTM_CARD_TOL:
+        raise AssertionError(f"xlstm card check: card logits off the CPU's by "
+                             f"{err.max():.3e} > {XLSTM_CARD_TOL} ({by_part})")
+    card["segments"][1]["cell"]["out"].zero_()
+    moved = (logits(card, "cuda") - on_card).abs()
+    seen = (moved > XLSTM_CARD_TOL).float().mean().item()
+    if seen < 0.5:
+        raise AssertionError(f"xlstm card check: zeroing the sLSTM's out projection moves "
+                             f"{seen:.1%} of the logits past the bound")
+    log("xlstm card vs cpu:", json.dumps({
+        "arch": XLSTM_ARCH, "layers": "1 mLSTM + 1 sLSTM of 24", "dtype": "float32",
+        "params_m": count_params(spec) / 1e6, "slots": B, "prefill": S, "chunk": 512,
+        "decode_steps": steps, "logits_max_abs_err": err.max().item(),
+        "logits_max_abs_err_by_part": by_part, "bound": XLSTM_CARD_TOL,
+        "logits_max_abs": on_cpu.abs().max().item(),
+        "slstm_out_zeroed_max_move": moved.max().item(),
+        "slstm_out_zeroed_share_past_bound": seen, "setup_s": setup_s, "card_s": card_s,
+        "cpu_s": cpu_s, "paged_attn_launches": launches}))
+    return launches
+
+
+def load_xlstm():
+    """xlstm-350m at every published width and all 24 layers (3 x (7 mLSTM
+    + 1 sLSTM)), random bf16 weights (``r_zifo`` and the norms float32)
+    from a seeded generator on the card, and the static loop's 8 prompts of
+    2048 tokens."""
+    from repro_torch.launch.serve import _batch_requests
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+
+    cfg = registry.get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    params = materialize(lm.param_spec(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"{XLSTM_ARCH}: {n:,} params ({nbytes / 1e9:.3f} GB), all {cfg.n_layers} layers, "
+        f"materialized on the card in {time.perf_counter() - t0:.1f} s")
+    prompts = [r.prompt for r in _batch_requests(cfg, 8, XLSTM_PROMPT, XLSTM_GEN, 0)]
+    return cfg, params, prompts
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves_with_path
+    return [t for _, _, t in leaves_with_path(tree)]
+
+
+def _state_bytes_a_slot(cfg):
+    """Bytes of one slot's decode state (the cells' float32 state)."""
+    from repro_torch.launch.steps import init_serving_caches
+    return sum(t.numel() * t.element_size()
+               for t in _leaves(init_serving_caches(cfg, 1, 16, device="meta")))
+
+
+def serve_xlstm(cfg, params, prompts):
+    """xlstm-350m served through the port's engine on the card at full width
+    and depth: 8 prompts of 2048 tokens + 64 greedy tokens, 8 slots,
+    max_len 4096, chunk 256 (the chunkwise form at a chunk of 256 for each
+    prefill chunk, the token scans at decode), the engine's defaults (no
+    pool: mixed dispatch, prefix sharing and speculation off).  Held against
+    it, a parting accepted only at a reported near tie: on its first
+    ``XLSTM_COMPARED`` prompts (the prefill's per-token sLSTM scans make
+    each run host-bound), horizon 4 and swap pressure (a logical pool of
+    258 blocks, which admits both prompts of 129 blocks and cannot grow
+    them, and a swap tier of 258: the cell state rides the swap ticket).
+    The static loop (``serve_static``, whose one-shot prefill runs the
+    chunkwise form at a chunk of 512 against the engine's 256) serves the
+    8 prompts in bf16 for its tok/s and peak memory; in bf16 the two
+    orders round apart and these random weights' logits hold three-way
+    near ties (on an H100, a parting at step 0 between the reference's
+    first and third token, 0.11 apart), which the near-tie rule cannot
+    hold.  So its streams are held against the engine's in float32 (the
+    same weights, upcast) on the first ``XLSTM_COMPARED`` prompts.  Then
+    one prompt of 16,384 tokens + 32 (max_len 16,448), whose state and peak
+    memory do not grow with its context; a decode profile with the mLSTM's
+    and sLSTM's shares (``record_function`` ranges; prompts of 256 tokens,
+    as a step's work does not depend on the context).  Every run launches
+    ``paged_attention`` 0 times (:class:`counting`).  Returns each run's
+    launches."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.serve import serve_static
+    from repro_torch.nn import blocks
+    from repro_torch.tree import tree_map
+
+    state = _state_bytes_a_slot(cfg)
+    a = serve(cfg, params, prompts, XLSTM_GEN, max_len=XLSTM_MAX_LEN, timed=True)
+    s1 = a["summary"]
+    chunk_ms = [t * 1e3 for t in a["times"]["_prefill"]]
+    base = {"arch": XLSTM_ARCH, "layers": cfg.n_layers, "requests": len(prompts),
+            "prompt": XLSTM_PROMPT, "generated": XLSTM_GEN, "wall_s": a["wall"],
+            "decode_tokens_per_s": s1["decode_tokens_per_s"], "ttft_s": s1["ttft_s"],
+            "tpot_s": s1["tpot_s"], "prefill_time_s": s1["prefill_time_s"],
+            "prefill_tokens": s1["prefill_tokens"],
+            "prefill_ms_per_prompt_token": s1["prefill_time_s"] * 1e3 / s1["prefill_tokens"],
+            "prefill_chunk_wall_ms_median": float(np.median(chunk_ms)),
+            "decode_dispatches": s1["decode_dispatches"], "forwards": a["forwards"],
+            "paged_attn_launches": a["launches"], "peak_memory_gb": a["peak"] / 1e9,
+            "state_bytes_a_slot": state, "kv_cache_bytes": s1["kv_cache_bytes"]}
+    log("xlstm serving:", json.dumps(base))
+    few = prompts[:XLSTM_COMPARED]
+    runs = {"h4": serve(cfg, params, few, XLSTM_GEN, max_len=XLSTM_MAX_LEN, horizon=4),
+            "swap": serve(cfg, params, few, XLSTM_GEN, max_len=XLSTM_MAX_LEN,
+                          n_blocks=258, swap_blocks=258)}
+    if runs["swap"]["summary"]["preemptions"]["swap"] <= 0:
+        raise AssertionError(f"xlstm swap run: no swap preemption "
+                             f"{runs['swap']['summary']['preemptions']}")
+    h4 = runs["h4"]["summary"]
+    if h4["decode_dispatches"] >= h4["decode_steps"]:
+        raise AssertionError("xlstm horizon 4: no dispatch ran more than one decode step")
+    for what, r in runs.items():
+        s = r["summary"]
+        base_few = {rid: a["streams"][rid] for rid in range(XLSTM_COMPARED)}
+        n_equal = compare_streams(params, cfg, prompts, base_few, r["streams"],
+                                  f"xlstm {what} vs the default run")
+        log(f"xlstm serving ({what}):", json.dumps({
+            "wall_s": r["wall"], "streams_equal_to_default": n_equal,
+            "decode_tokens_per_s": s["decode_tokens_per_s"], "ttft_s": s["ttft_s"],
+            "preemptions": s["preemptions"], "decode_dispatches": s["decode_dispatches"],
+            "decode_steps": s["decode_steps"], "paged_attn_launches": r["launches"],
+            "peak_memory_gb": r["peak"] / 1e9}))
+
+    def static_loop(p, batch):
+        paged_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        generated, tps = serve_static(cfg, batch=batch, prompt_len=XLSTM_PROMPT,
+                                      gen=XLSTM_GEN, seed=0, params=p, verbose=False)
+        line = {"wall_s": time.perf_counter() - t, "decode_tokens_per_s": tps,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "paged_attn_launches": paged_attention.launches}
+        if line["paged_attn_launches"]:
+            raise AssertionError(f"the static loop launched paged_attention: {line}")
+        if not ((generated >= 0) & (generated < cfg.vocab)).all():
+            raise AssertionError("serve_static: token out of range")
+        return {i: [int(x) for x in row] for i, row in enumerate(generated)}, line
+
+    static, line = static_loop(params, len(prompts))
+    line["bf16_streams_equal_to_engine"] = sum(static[i] == a["streams"][i] for i in static)
+    line["bf16_first_parting_steps"] = [
+        next((j for j, (x, y) in enumerate(zip(static[i], a["streams"][i])) if x != y), None)
+        for i in static]
+    p32 = tree_map(lambda t: t.float(), params)
+    e32 = serve(cfg, p32, few, XLSTM_GEN, max_len=XLSTM_MAX_LEN)
+    static32, line32 = static_loop(p32, XLSTM_COMPARED)
+    line["float32_streams_equal_to_engine"] = compare_streams(
+        p32, cfg, prompts, e32["streams"], static32,
+        "xlstm float32 serve_static vs the float32 engine")
+    line.update(float32_engine_wall_s=e32["wall"], float32_static_wall_s=line32["wall_s"],
+                float32_paged_attn_launches=e32["launches"] + line32["paged_attn_launches"])
+    del p32
+    log("xlstm static loop:", json.dumps(line))
+
+    long_prompt = np.random.default_rng(5).integers(0, cfg.vocab, size=XLSTM_LONG_PROMPT,
+                                                    dtype=np.int32)
+    lc = serve(cfg, params, [long_prompt], XLSTM_LONG_GEN, slots=1,
+               max_len=XLSTM_LONG_PROMPT + 64)
+    s = lc["summary"]
+    log("xlstm long context:", json.dumps({
+        "prompt": XLSTM_LONG_PROMPT, "generated": XLSTM_LONG_GEN, "wall_s": lc["wall"],
+        "prefill_ms_per_prompt_token": s["prefill_time_s"] * 1e3 / s["prefill_tokens"],
+        "base_prefill_ms_per_prompt_token": base["prefill_ms_per_prompt_token"],
+        "ttft_s": s["ttft_s"], "decode_tokens_per_s": s["decode_tokens_per_s"],
+        "peak_memory_gb": lc["peak"] / 1e9, "base_peak_memory_gb": base["peak_memory_gb"],
+        "state_bytes_a_slot": state, "paged_attn_launches": lc["launches"]}))
+
+    with ranged(blocks, "mlstm_block"), ranged(blocks, "slstm_block"):
+        profile_decode(params, cfg, [p[:256] for p in prompts],
+                       label="xlstm decode profile (8 slots, 4 steps each block)",
+                       op_shares={"mlstm": lambda e: e.key == "mlstm_block",
+                                  "slstm": lambda e: e.key == "slstm_block"})
+    return {"serve_xlstm": a["launches"], "serve_xlstm_h4": runs["h4"]["launches"],
+            "serve_xlstm_swap": runs["swap"]["launches"],
+            "serve_xlstm_static": line["paged_attn_launches"],
+            "serve_xlstm_float32": line["float32_paged_attn_launches"],
+            "serve_xlstm_long": lc["launches"]}
+
+
+def load_nemotron():
+    """nemotron-4-15b at every published width and all 32 layers (d_model
+    6144, 48 query heads over 8 KV heads of 128, relu² MLP of 24,576, vocab
+    256,000), random bf16 weights from a seeded generator on the card, and
+    eight 512-token prompts."""
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+
+    cfg = registry.get_config(NEMOTRON_ARCH)
+    t0 = time.perf_counter()
+    params = materialize(lm.param_spec(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    log(f"{NEMOTRON_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.1f} GB in bf16), all "
+        f"{cfg.n_layers} layers, materialized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, cfg.vocab, size=(8, 512), dtype=np.int32))
+    return cfg, params, prompts
+
+
+def serve_nemotron(cfg, params, prompts):
+    """nemotron-4-15b served at full width and depth with the engine's
+    defaults (mixed dispatch and prefix sharing on: the model is fully
+    paged): 8 prompts of 512 tokens + 32 greedy tokens; every
+    decode-carrying forward launches ``paged_attention`` once a layer (32 a
+    forward, G = 6, :class:`counting`).  Then a decode profile with
+    ``paged_attn``'s share.  Returns the run's launches."""
+    a = serve(cfg, params, prompts, 32)
+    s1 = a["summary"]
+    log("nemotron serving:", json.dumps({
+        "arch": NEMOTRON_ARCH, "layers": cfg.n_layers, "requests": len(prompts),
+        "prompt": 512, "generated": 32, "wall_s": a["wall"],
+        "decode_tokens_per_s": s1["decode_tokens_per_s"], "ttft_s": s1["ttft_s"],
+        "tpot_s": s1["tpot_s"], "prefill_time_s": s1["prefill_time_s"],
+        "mixed_dispatches": s1["mixed"]["dispatches"],
+        "decode_dispatches": s1["decode_dispatches"],
+        "forwards_through_kernel": a["forwards"], "paged_attn_launches": a["launches"],
+        "launches_per_forward": a["launches"] / a["forwards"],
+        "peak_memory_gb": a["peak"] / 1e9, "kv_cache_bytes": s1["kv_cache_bytes"]}))
+    if a["launches"] != cfg.n_layers * a["forwards"] or not a["forwards"]:
+        raise AssertionError(f"nemotron: {a['launches']} launches over {a['forwards']} "
+                             f"forwards, not {cfg.n_layers} a forward")
+    profile_decode(params, cfg, prompts,
+                   label="nemotron decode profile (8 slots, 4 steps each block)")
+    return {"serve_nemotron": a["launches"]}
+
+
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
             "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
-            "mla_card", "serve_mla")
+            "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron")
 
 
 def run_picked(picked, name, smi):
     """The picked phases only (``serve_sc`` brings ``odin_linear``, whose
     checked row counts it needs; ``serve_spec`` and ``serve_dense`` the
-    paged run of the serving traffic they are held against; ``serve_moe``
-    and ``serve_mla`` the small models' card-vs-CPU check); no kernels
-    line."""
+    paged run of the serving traffic they are held against; ``serve_moe``,
+    ``serve_mla`` and ``serve_nemotron`` the small models' card-vs-CPU
+    check); no kernels line.  Each phase's seconds are printed."""
     if "paged_attn" in picked:
         check_paged_attn()
     if "act_pool" in picked:
@@ -2533,7 +2864,7 @@ def run_picked(picked, name, smi):
     if "serve_hybrid" in picked:
         serve_hybrid(*load_hymba())
         free_device_memory()
-    if picked & {"serve_moe", "serve_mla"}:
+    if picked & {"serve_moe", "serve_mla", "serve_nemotron"}:
         small_model_card_vs_cpu()
     if "serve_moe" in picked:
         serve_moe(*load_qwen3())
@@ -2543,11 +2874,32 @@ def run_picked(picked, name, smi):
         free_device_memory()
     if "serve_mla" in picked:
         serve_mla(*load_deepseek())
+        free_device_memory()
+    for phase, run in (("xlstm_card", xlstm_card_vs_cpu),
+                       ("serve_xlstm", lambda: serve_xlstm(*load_xlstm())),
+                       ("serve_nemotron", lambda: serve_nemotron(*load_nemotron()))):
+        if phase in picked:
+            t = time.perf_counter()
+            run()
+            free_device_memory()
+            log(f"{phase} phase: {time.perf_counter() - t:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "phases": sorted(picked),
                     "device": {"platform": "gpu", "kind": name,
                                "count": torch.cuda.device_count()}}))
     return 0
+
+
+class Laps:
+    """Logs the seconds since the previous lap (or since it was made)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        log(f"{phase} phase: {now - self.t:.1f} s")
+        self.t = now
 
 
 def main(argv=None):
@@ -2586,52 +2938,73 @@ def main(argv=None):
     if picked:
         return run_picked(picked, name, smi)
 
+    lap = Laps()
     attn_lines = check_paged_attn()
     report = attn_lines["decode_bf16"]
+    lap("paged_attn")
     act_launches, act_lines = check_act_pool()
+    lap("act_pool")
     sc_lines = check_sc_mac()
+    lap("sc_mac")
     phi4_sc, sc_rows_checked = check_odin_linear_full_width()
+    lap("odin_linear")
     int8_lines = check_int8_mm()
     check_rail_dot()
+    lap("int8_mm, rail dot")
     small_model_card_vs_cpu()
+    lap("small models")
     cfg, params, prompts, rng = load_phi4()
     paged_launches, exact_streams, exact_tps = serve_full_width(cfg, params, prompts, rng)
+    lap("phi4 serving")
     spec_launches, spec_by_q = serve_spec(cfg, params, prompts, exact_streams, exact_tps)
     paged_launches.update(spec_launches)
     paged_launches.update(frontdoor(cfg, params, prompts))
+    lap("serve_spec, frontdoor")
     odin = serve_odin(cfg, params, prompts, exact_streams, rng, sc_rows_checked)
     paged_launches.update(serve_int8=odin["int8"]["launches"], serve_sc=odin["sc"]["launches"])
     paged_launches.update(guarded_faults(cfg, params, rng))
     paged_launches.update(serve_dense(cfg, params, prompts, exact_streams))
     del params
     free_device_memory()
-    t_hybrid = time.perf_counter()
+    lap("int8/sc serving, guarded, serve_dense")
     paged_launches["hymba_card_vs_cpu"] = hymba_card_vs_cpu()
     hymba_cfg, hymba_params, hymba_prompts = load_hymba()
     paged_launches.update(serve_hybrid(hymba_cfg, hymba_params, hymba_prompts))
     del hymba_params
     free_device_memory()
-    log(f"hymba phases: {time.perf_counter() - t_hybrid:.1f} s")
-    t_moe = time.perf_counter()
+    lap("hymba")
     moe_cfg, moe_params, moe_prompts = load_qwen3()
     moe_launches, moe_by_q = serve_moe(moe_cfg, moe_params, moe_prompts)
     paged_launches.update(moe_launches)
     del moe_params
     free_device_memory()
-    log(f"serve_moe phase: {time.perf_counter() - t_moe:.1f} s")
-    t_mla = time.perf_counter()
+    lap("serve_moe")
     paged_launches["mla_card_vs_cpu"] = mla_card_vs_cpu()
     free_device_memory()
-    log(f"mla_card phase: {time.perf_counter() - t_mla:.1f} s")
-    t_mla = time.perf_counter()
+    lap("mla_card")
     mla_cfg, mla_params, mla_prompts = load_deepseek()
     paged_launches.update(serve_mla(mla_cfg, mla_params, mla_prompts))
     del mla_params
     free_device_memory()
-    log(f"serve_mla phase: {time.perf_counter() - t_mla:.1f} s")
+    lap("serve_mla")
+    paged_launches["xlstm_card_vs_cpu"] = xlstm_card_vs_cpu()
+    free_device_memory()
+    lap("xlstm_card")
+    xlstm_cfg, xlstm_params, xlstm_prompts = load_xlstm()
+    paged_launches.update(serve_xlstm(xlstm_cfg, xlstm_params, xlstm_prompts))
+    del xlstm_params
+    free_device_memory()
+    lap("serve_xlstm")
+    nemo_cfg, nemo_params, nemo_prompts = load_nemotron()
+    paged_launches.update(serve_nemotron(nemo_cfg, nemo_params, nemo_prompts))
+    del nemo_params
+    free_device_memory()
+    lap("serve_nemotron")
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
                    "serve_sc": odin["sc"]["sc_mac_launches"]}
+    lap("cnn experiment")
     int8_launches = kernel_bench()
+    lap("kernel bench")
     sc_rep = sc_lines["cnn1_conv0_b64_tree"]
     int8_rep = int8_lines["4096x4096x4096"]
     act_rep = act_lines["vgg_8x224x224x64_relu_max"]

@@ -9,8 +9,8 @@ the same stacked ``[L, ...]`` segment leaves, as tensors on ``device``.
 Every leaf keeps the dtype the JAX spec gave it: bf16 weights stay bf16,
 and the float32 leaves (norms, MLA's ``kv_norm`` and ``q_norm``, the MoE
 router and DeepSeek's ``route_bias``, the SSM's ``A_log``, ``D`` and
-``dt_bias``, Hymba's ``mix_beta``) stay float32, unless ``dtype`` casts
-every floating leaf.  DeepSeek's ``mtp`` subtree crosses like the rest.
+``dt_bias``, Hymba's ``mix_beta``, the sLSTM's ``r_zifo``) stay float32,
+unless ``dtype`` casts every floating leaf.  DeepSeek's ``mtp`` subtree crosses like the rest.
 numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects: they cross as their uint16 bit patterns
 and are viewed back as ``torch.bfloat16``, bit for bit (the same trick

@@ -20,6 +20,8 @@ Usage:
   # DeepSeek-V3 (MLA's compressed latent cache per slot, MoE with a shared
   # expert; mixed dispatch and prefix sharing turn off by themselves):
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+  # xLSTM (mLSTM/sLSTM cell state per slot, no attention: no pool):
+  python -m repro_torch.launch.serve --arch xlstm-350m --smoke --device cpu
   # the static-batch loop over dense caches (the engine's parity baseline):
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu --static
 

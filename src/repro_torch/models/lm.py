@@ -1,5 +1,5 @@
-"""Decoder LM over stacked layer segments (dense, MoE and Hymba stacks, GQA
-or MLA attention).
+"""Decoder LM over stacked layer segments (dense, MoE, Hymba and xLSTM
+stacks, GQA or MLA attention).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
 package; a Python loop over the layers takes the place of its ``lax.scan``
@@ -140,7 +140,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                 attn_override=None, device=None):
     """Stacked per-segment decode caches (``dtype`` defaults to the config's
     ``kv_dtype``): dense, ring-buffer or MLA latent attention caches with a
-    scalar ``pos``, and a Hymba segment's SSM state.  ``attn_override(block_cfg)``
+    scalar ``pos``, a Hymba segment's SSM state, and an xLSTM segment's cell
+    state (float32 whatever ``dtype`` says).  ``attn_override(block_cfg)``
     returns a segment's attention cache instead (the serving layer passes
     the paged block pool) or None to keep the dense one; an overridden
     dense cache is never built."""

@@ -17,6 +17,10 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "nemotron-4-15b": "repro_torch.configs.nemotron_4_15b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

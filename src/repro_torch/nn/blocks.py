@@ -1,9 +1,9 @@
-"""Transformer blocks: the dense, MoE and Hymba branches of the JAX
-package's ``nn/blocks.py``.  Dense and MoE blocks are attention (GQA or
-MLA) + MLP or mixture of experts; a Hymba block runs attention and a
-selective SSM in parallel on the same input and fuses them through
-per-branch output norms and a learned per-channel mix.  xLSTM blocks are
-not ported yet.
+"""Blocks: the dense, MoE, Hymba and xLSTM branches of the JAX package's
+``nn/blocks.py``.  Dense and MoE blocks are attention (GQA or MLA) + MLP or
+mixture of experts; a Hymba block runs attention and a selective SSM in
+parallel on the same input and fuses them through per-branch output norms
+and a learned per-channel mix; an mLSTM or sLSTM block is a pre-norm
+recurrent cell with a residual, and holds no attention cache.
 """
 from __future__ import annotations
 
@@ -18,14 +18,15 @@ from repro_torch.nn.layers import activation, linear, linear_spec, norm_spec, rm
 from repro_torch.nn.module import ParamSpec
 from repro_torch.nn.moe import moe_block, moe_spec
 from repro_torch.nn.ssm import init_ssm_state, ssm_block, ssm_spec
+from repro_torch.nn.xlstm import (init_mlstm_state, init_slstm_state, mlstm_block,
+                                  mlstm_spec, slstm_block, slstm_spec)
 
 __all__ = ["block_spec", "block_apply", "block_cache"]
 
 
 def _check_kind(cfg: BlockConfig) -> None:
-    if cfg.kind not in ("dense", "moe", "hymba"):
-        raise NotImplementedError(
-            f"{cfg.kind} blocks are not ported to PyTorch yet (see ROADMAP.md)")
+    if cfg.kind not in ("dense", "moe", "hymba", "mlstm", "slstm"):
+        raise ValueError(f"unknown block kind {cfg.kind!r}")
 
 
 def _mlp_spec(d_model: int, d_ff: int, act: str) -> Dict[str, ParamSpec]:
@@ -51,6 +52,10 @@ def _mlp(p, x, act: str, odin):
 
 def block_spec(cfg: BlockConfig, d_model: int) -> Dict:
     _check_kind(cfg)
+    if cfg.kind == "mlstm":
+        return {"ln1": norm_spec(d_model), "cell": mlstm_spec(cfg.attn.n_heads, d_model)}
+    if cfg.kind == "slstm":
+        return {"ln1": norm_spec(d_model), "cell": slstm_spec(cfg.attn.n_heads, d_model)}
     spec = {
         "ln1": norm_spec(d_model),
         "ln2": norm_spec(d_model),
@@ -74,8 +79,13 @@ def block_cache(cfg: BlockConfig, d_model: int, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None, attn=None):
     """Per-layer decode state for one block.  ``attn`` replaces the dense
     attention cache (the serving layer's paged pool), which is then never
-    built."""
+    built.  xLSTM blocks hold their cell's float32 state alone, whatever
+    ``dtype`` says, and ignore ``attn``."""
     _check_kind(cfg)
+    if cfg.kind == "mlstm":
+        return {"cell": init_mlstm_state(cfg.attn.n_heads, d_model, batch, device)}
+    if cfg.kind == "slstm":
+        return {"cell": init_slstm_state(d_model, batch, device)}
     if attn is None:
         attn = init_cache(cfg.attn, batch, max_len, dtype, device)
     if cfg.kind == "hymba":
@@ -92,8 +102,17 @@ def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
     ``q_lens`` and ``q_decode`` go to the paged attention core (``q_lens``,
     the mixed tile, for dense and MoE blocks only)."""
     _check_kind(cfg)
-    if q_lens is not None and cfg.kind == "hymba":
+    if q_lens is not None and cfg.kind not in ("dense", "moe"):
         raise ValueError("mixed dispatch (q_lens) supports paged GQA blocks only")
+    if cfg.kind in ("mlstm", "slstm"):
+        h = rmsnorm(x, p["ln1"], norm_eps)
+        st = None if cache is None else cache["cell"]
+        if cfg.kind == "mlstm":
+            y, st = mlstm_block(p["cell"], h, cfg.attn.n_heads, state=st, odin=odin,
+                                impl=cfg.mlstm_impl)
+        else:
+            y, st = slstm_block(p["cell"], h, state=st, odin=odin)
+        return x + y, None if cache is None else {**cache, "cell": st}
     if cfg.kind == "hymba":
         h = rmsnorm(x, p["ln1"], norm_eps)
         a, ac = attention(p["attn"], h, cfg.attn, positions=positions,

@@ -10,9 +10,9 @@ serving steps (``launch/steps.py``) on the engine's ``device``:
   blocks, decode attends through the paged kernel (the CUDA kernel on the
   card).  With ``paged=False`` they hold the dense per-slot cache instead;
   sliding-window segments always hold a per-slot ring with ``chunk`` rows
-  of headroom, Hymba segments their SSM state, and MLA segments their
-  compressed latent rows ``c_kv``/``k_rope`` per slot (plain PyTorch, as
-  the JAX package runs jnp there);
+  of headroom, Hymba segments their SSM state, MLA segments their
+  compressed latent rows ``c_kv``/``k_rope`` per slot and xLSTM segments
+  their cells' state (plain PyTorch, as the JAX package runs jnp there);
 * mixed dispatch fuses prefill-chunk rows and decode rows into one tile;
 * ``horizon > 1`` runs up to ``h`` decode steps per dispatch with the
   token carry kept on the device and one host sync at the end;

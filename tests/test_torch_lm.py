@@ -14,6 +14,9 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
+from serving_harness import materialize, run_workload
+from test_torch_engine import run_port
+
 from repro.launch.steps import init_serving_caches as jax_init_serving_caches
 from repro.models import lm as jlm
 from repro.models import registry as jregistry
@@ -41,7 +44,7 @@ def jax_params():
 
 @pytest.mark.parametrize("which", ["get_config", "get_smoke"])
 def test_configs_are_the_reference_configs(which):
-    for arch in (ARCH, "qwen3-moe-235b-a22b", "hymba-1.5b"):
+    for arch in tregistry.ARCH_IDS:
         ours, theirs = getattr(tregistry, which)(arch), getattr(jregistry, which)(arch)
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert tmodule.count_params(tlm.param_spec(ours)) == jmodule.count_params(
@@ -53,7 +56,7 @@ def test_configs_are_the_reference_configs(which):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tregistry.get_smoke("xlstm-350m")
+        tregistry.get_smoke("musicgen-medium")
 
 
 @pytest.mark.parametrize("init", ["normal", "fan_in"])
@@ -191,3 +194,29 @@ def test_moe_model_flops_count_active_params():
     total = tmodule.count_params(tlm.param_spec(cfg))
     active = tlm.model_flops(cfg, 1, train=False) / 2
     assert round(total / 1e9, 2) == 235.09 and round(active / 1e9, 2) == 22.19
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "phi3-medium-14b", "llama3-405b"])
+def test_dense_gqa_smoke_configs_match_jax(arch):
+    """The dense GQA configs that run only ported paths (nemotron's relu²,
+    phi3-medium's and llama3's swiglu; 4 query heads over 2 KV heads of 16
+    at smoke size), float32: ``lm.forward`` over a 12-token prompt within
+    1e-5 of the JAX forward, and the engine's greedy streams on
+    ``mixed_spec()`` equal to the JAX engine's with the defaults (mixed
+    dispatch and prefix sharing on, as the model is fully paged)."""
+    jcfg, jparams = materialize(arch)
+    host = jax.tree.map(np.asarray, jparams)
+    jcfg = jcfg.with_overrides(kv_dtype="float32")
+    jparams = jax.tree.map(lambda a: a.astype(np.float32), jparams)
+    tcfg = tregistry.get_smoke(arch).with_overrides(kv_dtype="float32")
+    tparams = params_from_numpy(host, "cpu", dtype=torch.float32)
+    tokens = np.random.default_rng(4).integers(0, tcfg.vocab, size=(2, 12)).astype(np.int32)
+    jl = np.asarray(jlm.forward(jparams, jnp.asarray(tokens), jcfg)[0])
+    tl = tlm.forward(tparams, torch.from_numpy(tokens), tcfg)[0].numpy()
+    np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=0)
+    ours, summary, _ = run_port(tcfg, tparams)
+    theirs, jsummary = run_workload(jcfg, jparams)
+    assert ours == theirs
+    assert summary["generated_tokens"] == jsummary["generated_tokens"]
+    assert summary["kv_cache_bytes"] == jsummary["kv_cache_bytes"] > 0
+    assert summary["mixed"]["dispatches"] > 0

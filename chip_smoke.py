@@ -14,8 +14,10 @@ Phases, each fatal on failure:
    and the speculative phase's 5-token verify tile, at phi4's 3 query heads
    a KV head and at qwen3-moe's 16, whose launch plan cuts a head's rows
    into 4 and 20 chunks, hymba's global layers' decode at G = 5, D = 64
-   over 1536-1600 tokens, 2 chunks of 3 rows, and nemotron-4-15b's G = 6
-   at D = 128, 2 and 10 chunks of 3 rows), one long slot, 64
+   over 1536-1600 tokens, 2 chunks of 3 rows, nemotron-4-15b's G = 6
+   at D = 128, 2 and 10 chunks of 3 rows, musicgen-medium's MHA decode at
+   G = 1, D = 64, one chunk of 1 row, and qwen2-vl-2b's G = 6 over 2 KV
+   heads, 2 and 10 chunks), one long slot, 64
    slots that the plan does not split, and window and verify cases whose
    plan leaves empty splits; ``act_pool`` bit for bit
    through its own entry point on CNN1's and CNN2's conv maps at batch 64
@@ -119,14 +121,34 @@ Phases, each fatal on failure:
    31.3 GB): 8 prompts of 512 tokens + 32 with the engine's defaults,
    ``paged_attention`` at G = 6 once a layer a decode-carrying forward; a
    decode profile with ``paged_attn``'s share;
-13. run the paper's experiment at full width (``launch/odin_inference``):
+13. MusicGen: musicgen-medium's widths over 2 of its layers, float32: the
+   logits ``[B, S, 4, V]`` of a prefill and 3 decode frames on the card
+   within ``MUSICGEN_CARD_TOL`` of the CPU plain path, moved past it when
+   the head's or the embedding's codebook axis is rolled, and the engine's
+   frame streams card == CPU; then musicgen-medium at every width and all
+   48 layers (random bf16 weights, 2.77 GB): 8 prompts of [4, 512] tokens
+   + 32 greedy frames with the engine's defaults, ``paged_attention`` at
+   G = 1, D = 64 once a layer a decode-carrying forward; horizon 4, swap
+   pressure and the static loop on its first 2 prompts held against it
+   frame by frame; a decode profile;
+14. Qwen2-VL: qwen2-vl-2b's widths over 2 of its layers, float32, a prefill
+   with the vision stub's extras and 3 decode steps card == CPU within
+   ``VLM_CARD_TOL``, moved past it by reversed M-RoPE sections or RoPE at
+   (t, t, t), and the engine's streams of requests with extras card ==
+   CPU; then qwen2-vl-2b at every width and all 28 layers (3.55 GB): 8
+   requests of 448 tokens with extras (100 patches) + 32 through the
+   separate prefill and 8 text-only requests of 512 + 32 through mixed
+   dispatch, ``paged_attention`` at G = 6 over 2 KV heads once a layer a
+   decode-carrying forward; recompute pressure and the static loop on the
+   first 2 extras requests held against the base run; a decode profile;
+15. run the paper's experiment at full width (``launch/odin_inference``):
    train CNN1 for 300 steps, evaluate 512 held-out images in fp32, int8,
    sc hybrid/32, sc hybrid/8 and the sc full tree under the JAX suite's
    accuracy thresholds, count ``sc_mac`` launches (rails x MAC layers x
    forwards, a warm-up forward included), profile one forward of each
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
-14. run the kernel bench entry point (``launch/kernel_bench``), the path of
+16. run the kernel bench entry point (``launch/kernel_bench``), the path of
    ``int8_mm``, and count its launches.
 
 Each phase's seconds are printed.
@@ -138,8 +160,9 @@ than one path, the count of each.
 The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
 odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
-serve_hybrid,mla_card,serve_mla,xlstm_card,serve_xlstm,serve_nemotron`` (any
-subset) runs only those checks, for a focused call, and prints no kernels
+serve_hybrid,mla_card,serve_mla,xlstm_card,serve_xlstm,serve_nemotron,
+musicgen_card,vlm_card,serve_musicgen,serve_vlm`` (any subset) runs only those
+checks, for a focused call, and prints no kernels
 line.
 """
 from __future__ import annotations
@@ -427,11 +450,23 @@ def check_paged_attn():
                   seed=13),
         attn_case("verify_q5_nemotron_g6_bf16", Q=5, H=48, Hkv=8, lengths=(512, 576),
                   copies=4, seed=14),
+        # musicgen-medium's decode: 24 heads over 24 KV heads (MHA, G = 1) of
+        # 64, 8 slots of 512-576 tokens
+        attn_case("decode_musicgen_g1_d64_bf16", H=24, Hkv=24, D=64, lengths=(512, 576),
+                  copies=4, seed=15),
+        # qwen2-vl-2b's serving shapes: 12 query heads over 2 KV heads (G = 6)
+        # of 128, decode and the Q = 5 verify tile; 16 pools, as the live K/V
+        # of one is 4.5 MB
+        attn_case("decode_qwen2vl_g6_hkv2_bf16", H=12, Hkv=2, lengths=(512, 576),
+                  copies=16, seed=16),
+        attn_case("verify_q5_qwen2vl_g6_hkv2_bf16", Q=5, H=12, Hkv=2, lengths=(512, 576),
+                  copies=16, seed=17),
     ]
     # row chunks of the launch plan, each re-reading its split's pages
     expect_chunks = {"decode_qwen3_g16_bf16": 4, "verify_q5_qwen3_g16_bf16": 20,
                      "decode_hymba_g5_d64_bf16": 2, "decode_nemotron_g6_bf16": 2,
-                     "verify_q5_nemotron_g6_bf16": 10}
+                     "verify_q5_nemotron_g6_bf16": 10, "decode_musicgen_g1_d64_bf16": 1,
+                     "decode_qwen2vl_g6_hkv2_bf16": 2, "verify_q5_qwen2vl_g6_hkv2_bf16": 10}
     # cases whose plan must leave CTAs with no visible key (exact empty partials)
     need_empty = ("window_bf16", "verify_q3_bf16", "zero_len_masked_f32", "window_q3_int8_f32")
     lines = {}
@@ -675,35 +710,47 @@ class counting:
                                  f"to {self.launches}")
 
 
+def _token(x):
+    """A stream's token: an int, or a multi-codebook frame's tuple of ints."""
+    x = np.ravel(x)
+    return int(x[0]) if x.size == 1 else tuple(int(v) for v in x)
+
+
 def check_streams(reqs, max_new, vocab, all_done=True):
     """Greedy streams of finished requests: terminal, in the vocabulary, and
-    of ``max_new`` tokens each when ``all_done``.  Returns {rid: tokens}."""
-    streams = {r.rid: [int(np.ravel(x)[0]) for x in r.generated] for r in reqs}
+    of ``max_new`` tokens each when ``all_done``.  Returns {rid: tokens}
+    (each token an int, or a tuple over a multi-codebook frame)."""
+    streams = {r.rid: [_token(x) for x in r.generated] for r in reqs}
     for r in reqs:
         if all_done and (r.state.name != "DONE" or len(streams[r.rid]) != max_new):
             raise AssertionError(f"request {r.rid} ended {r.state} with "
                                  f"{len(streams[r.rid])}/{max_new} tokens")
         if not r.terminal:
             raise AssertionError(f"request {r.rid} did not reach a terminal state")
-        if not all(0 <= x < vocab for x in streams[r.rid]):
+        if not all(0 <= v < vocab for x in streams[r.rid] for v in np.ravel(x)):
             raise AssertionError(f"request {r.rid}: token out of range")
     return streams
 
 
 def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True,
-          timed=False, **kw):
-    """Serve ``prompts`` (all arriving at once) greedily through the port's
-    engine on the card.  Every forward that carries a decode row, a mixed
-    tile or a verify tile (plain, guarded, horizon or speculative decode,
-    mixed dispatch) must launch ``paged_attention`` once per layer, and
+          timed=False, extras=None, **kw):
+    """Serve ``prompts`` (all arriving at once, request ``i`` with
+    ``extras[i]`` when given) greedily through the port's engine on the
+    card, with a prefill chunk of 256 unless ``kw`` sets one.  Every
+    forward that carries a decode row, a mixed tile or a verify tile
+    (plain, guarded, horizon or speculative decode, mixed dispatch) must
+    launch ``paged_attention`` once per layer, and
     every forward of an int8/sc engine runs ``odin_linear`` on each
     projection; the launch counts are set to 0 just before the run and read
     just after it (:class:`counting`)."""
     from repro_torch.serving import Request, ServingEngine
 
-    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16,
-                        prefill_chunk=256, params=params, **kw)
-    reqs = [Request(rid=i, prompt=pr, max_new=max_new) for i, pr in enumerate(prompts)]
+    kw.setdefault("prefill_chunk", 256)
+    eng = ServingEngine(cfg, slots=slots, max_len=max_len, block_size=16, params=params,
+                        **kw)
+    reqs = [Request(rid=i, prompt=pr, max_new=max_new,
+                    extras=None if extras is None else extras[i])
+            for i, pr in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
     with counting(eng, timed) as c:
         t = time.perf_counter()
@@ -792,39 +839,58 @@ def serve_full_width(cfg, params, prompts, rng):
 LOGIT_TIE_TOL = 0.125
 
 
-def compare_streams(params, cfg, prompts, base, other, what):
+def compare_streams(params, cfg, prompts, base, other, what, extras=None):
     """Log how many of two runs' streams are equal and hold every parting to
     a near tie (:func:`check_divergence`).  Returns the count of equal ones."""
     n_equal = sum(base[rid] == other[rid] for rid in base)
     log(f"{what}: {n_equal}/{len(base)} streams equal")
     for rid in base:
-        check_divergence(params, cfg, prompts[rid], base[rid], other[rid], rid, what)
+        check_divergence(params, cfg, prompts[rid], base[rid], other[rid], rid, what,
+                         extras=None if extras is None else extras[rid])
     return n_equal
 
 
-def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off"):
+def check_divergence(params, cfg, prompt, a, b, rid, what="mixed on/off", extras=None):
     """Two greedy streams of one request may part only at a near tie: at the
     first differing step both tokens must be the reference forward's top two,
     with logits within LOGIT_TIE_TOL.  Each such step is reported.  The
-    reference forward routes MoE blocks drop-free, as serving does."""
+    reference forward routes MoE blocks drop-free, as serving does; a
+    multi-codebook frame is held codebook by codebook (every codebook that
+    differs at that step must be a near tie of its own head), and a vision
+    request's forward takes its extras, its generated tail at (t, t, t)."""
     from repro_torch.models import lm
     t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if t is None:
         return
-    ctx = torch.as_tensor(np.concatenate([prompt, np.asarray(a[:t], np.int32)]),
-                          device=params["embed"].device)[None]
+    dev = params["embed"].device
+    prompt = np.asarray(prompt, np.int32)
+    K = prompt.shape[0] if prompt.ndim == 2 else 1
+    gen = np.asarray(a[:t], np.int32).reshape(t, K).T               # [K, t]
+    ctx = np.concatenate([prompt, gen if prompt.ndim == 2 else gen[0]], axis=-1)
+    kw = {}
+    if extras is not None:
+        pos3d = extras["pos3d"]
+        tail = np.repeat(np.arange(len(pos3d), ctx.shape[-1], dtype=np.int32)[:, None], 3, 1)
+        kw = {"patch_embeds": torch.as_tensor(extras["patch_embeds"], device=dev)[None],
+              "pos3d": torch.as_tensor(np.concatenate([pos3d, tail]), device=dev)[None]}
     with torch.no_grad():
-        logits = lm.forward(params, ctx, cfg, moe_no_drop=True)[0][0, -1].float()
-    top = torch.topk(logits, 2)
-    gap = abs(logits[a[t]].item() - logits[b[t]].item())
-    report = {"streams": what, "rid": rid, "step": t, "token_a": a[t], "token_b": b[t],
-              "reference_top2": top.indices.tolist(),
-              "reference_top2_gap": (top.values[0] - top.values[1]).item(),
-              "gap_between_tokens": gap, "tol": LOGIT_TIE_TOL}
-    log("stream divergence at a near tie:", json.dumps(report))
-    if set(top.indices.tolist()) != {a[t], b[t]} or gap > LOGIT_TIE_TOL:
-        raise AssertionError(f"request {rid}: {what} streams part at step {t} "
-                             f"without a near tie: {report}")
+        logits = lm.forward(params, torch.as_tensor(ctx, device=dev)[None], cfg,
+                            moe_no_drop=True, **kw)[0][0, -1].float()
+    logits = logits.reshape(-1, logits.shape[-1])                   # [K, V]
+    xa, xb = np.ravel(a[t]), np.ravel(b[t])
+    for k in np.flatnonzero(xa != xb):
+        top = torch.topk(logits[k], 2)
+        gap = abs(logits[k, xa[k]].item() - logits[k, xb[k]].item())
+        report = {"streams": what, "rid": rid, "step": t, "token_a": int(xa[k]),
+                  "token_b": int(xb[k]), "reference_top2": top.indices.tolist(),
+                  "reference_top2_gap": (top.values[0] - top.values[1]).item(),
+                  "gap_between_tokens": gap, "tol": LOGIT_TIE_TOL}
+        if len(xa) > 1:
+            report["codebook"] = int(k)
+        log("stream divergence at a near tie:", json.dumps(report))
+        if set(top.indices.tolist()) != {int(xa[k]), int(xb[k])} or gap > LOGIT_TIE_TOL:
+            raise AssertionError(f"request {rid}: {what} streams part at step {t} "
+                                 f"without a near tie: {report}")
 
 
 def profile_decode(params, cfg, prompts, *, block=4, max_new=32, max_len=1024,
@@ -2824,10 +2890,357 @@ def serve_nemotron(cfg, params, prompts):
     return {"serve_nemotron": a["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: MusicGen's codebook frames, Qwen2-VL's M-RoPE and extras
+# ---------------------------------------------------------------------------
+
+MUSICGEN_ARCH, VLM_ARCH = "musicgen-medium", "qwen2-vl-2b"
+# |card - CPU| bounds of the 2-layer float32 logits (TF32 off), at most 4x
+# the worst measured on an H100: 2.26e-6 and 1.19e-5 (PERF.md §6)
+MUSICGEN_CARD_TOL = 9e-6
+VLM_CARD_TOL = 4.5e-5
+# prompts of a base serving run that its comparison runs serve
+SERVE_COMPARED = 2
+VLM_PROMPT, VLM_TEXT_PROMPT, SERVE_GEN = 448, 512, 32
+
+
+def _two_layers(arch):
+    """An arch's published widths over 2 of its layers, float32 KV."""
+    import dataclasses
+
+    from repro_torch.models import registry
+    full = registry.get_config(arch)
+    return full.with_overrides(kv_dtype="float32", blocks=(
+        dataclasses.replace(full.blocks[0], n_layers=2),))
+
+
+def _float32_weights(cfg):
+    """float32 weights from a seeded generator on the card, and their copy on
+    the host."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.nn.module import materialize
+    from repro_torch.tree import tree_map
+    spec = tree_map(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                    lm.param_spec(cfg))
+    card = materialize(spec, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return card, tree_map(lambda t: t.cpu(), card)
+
+
+def _paged_logits(cfg, p, dev, prompt, steps, extras=None):
+    """Logits of a prefill of ``prompt`` ([B, S] or [B, K, S]) and of one
+    decode forward a token of ``steps`` ([n, B, 1] or [n, B, K, 1]) on paged
+    serving caches: [B, S + n, ...] on the host.  ``extras`` (patch_embeds,
+    pos3d) go to the prefill; decode steps take (t, t, t)."""
+    from repro_torch.launch.steps import init_serving_caches
+    from repro_torch.models import lm
+    B, S = prompt.shape[0], prompt.shape[-1]
+    pages = -(-(S + len(steps)) // 16)
+    tables = torch.arange(B * pages, dtype=torch.int32, device=dev).reshape(B, pages)
+    caches = init_serving_caches(cfg, B, pages * 16, block_size=16, n_blocks=B * pages,
+                                 device=dev)
+    kw = {} if extras is None else {k: torch.as_tensor(v, device=dev)
+                                    for k, v in extras.items()}
+    with torch.no_grad():
+        out, caches, _ = lm.forward(p, prompt.to(dev), cfg, caches=caches, tables=tables,
+                                    **kw)
+        outs = [out]
+        for i, tok in enumerate(steps):
+            start = torch.full((B, 1), S + i, dtype=torch.int32, device=dev)
+            out, caches, _ = lm.forward(p, tok.to(dev), cfg, caches=caches,
+                                        start_pos=start, tables=tables)
+            outs.append(out)
+    return torch.cat(outs, dim=1).cpu()
+
+
+def _card_vs_cpu(name, cfg, card, host, prompt, steps, tol, wrong, extras=None,
+                 reqs=None):
+    """The logits of :func:`_paged_logits` on the card (``paged_attn`` once a
+    layer a decode step) and on the CPU (plain path) agree within ``tol``;
+    each of ``wrong`` (what → (params, cfg) on the card) moves most logits
+    past it; with ``reqs`` (a request factory), the engine's greedy streams
+    on the card equal the CPU's.  Returns the report."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.serving import ServingEngine
+    paged_attention.launches = 0
+    t = time.perf_counter()
+    on_card = _paged_logits(cfg, card, "cuda", prompt, steps, extras)
+    card_s = time.perf_counter() - t
+    launches = paged_attention.launches
+    t = time.perf_counter()
+    on_cpu = _paged_logits(cfg, host, "cpu", prompt, steps, extras)
+    cpu_s = time.perf_counter() - t
+    if launches != cfg.n_layers * len(steps):
+        raise AssertionError(f"{name}: {launches} paged_attention launches, not "
+                             f"{cfg.n_layers} layers x {len(steps)} decode steps")
+    if not bool(torch.isfinite(on_card).all()):
+        raise AssertionError(f"{name}: non-finite logits on the card")
+    err = (on_card - on_cpu).abs()
+    S = prompt.shape[-1]
+    by_part = {"prefill": err[:, :S].max().item(), "decode": err[:, S:].max().item()}
+    line = {"layers": f"2 of {name}", "dtype": "float32", "slots": prompt.shape[0],
+            "prefill": S, "decode_steps": len(steps), "logits_max_abs_err": err.max().item(),
+            "logits_max_abs_err_by_part": by_part, "bound": tol,
+            "logits_max_abs": on_cpu.abs().max().item(), "card_s": card_s, "cpu_s": cpu_s,
+            "paged_attn_launches": launches}
+    if err.max().item() > tol:
+        raise AssertionError(f"{name}: card logits off the CPU's by {err.max():.3e} > "
+                             f"{tol} ({by_part})")
+    for what, (p, c) in wrong.items():
+        moved = (_paged_logits(c, p, "cuda", prompt, steps, extras) - on_card).abs()
+        line[f"{what}_max_move"] = moved.max().item()
+        line[f"{what}_share_past_bound"] = seen = (moved > tol).float().mean().item()
+        if seen < 0.5:
+            raise AssertionError(f"{name}: {what} moves {seen:.1%} of the logits past "
+                                 f"the bound; the check cannot see it")
+    if reqs is not None:
+        streams = {}
+        for dev, p in (("cuda", card), ("cpu", host)):
+            eng = ServingEngine(cfg, slots=3, max_len=64, block_size=16, params=p,
+                                device=dev, prefill_chunk=64)
+            rs = reqs()
+            eng.run(rs)
+            streams[dev] = check_streams(rs, rs[0].max_new, cfg.vocab)
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(f"{name}: card streams {streams['cuda']} != cpu "
+                                 f"{streams['cpu']}")
+        line["engine_streams_equal"] = len(streams["cuda"])
+    return line
+
+
+def musicgen_card_vs_cpu():
+    """musicgen-medium at every published width (d_model 1536, 24 heads over
+    24 KV heads of 64, d_ff 6144, 4 codebooks of 2048) over 2 of its 48
+    layers, float32 weights on the card and their copy on the host: the
+    logits ``[B, S, 4, V]`` of a prefill of 2 x 40 frames and of 3 decode
+    frames on paged serving caches (``paged_attn`` at G = 1, D = 64 on the
+    card) agree within ``MUSICGEN_CARD_TOL``, and so do the engine's
+    greedy frame streams.  A wrong codebook axis, the head's or the
+    embedding's codebooks rolled by one, moves most logits past the bound.
+    Returns the card run's launches."""
+    from repro_torch.serving import Request
+    cfg = _two_layers(MUSICGEN_ARCH)
+    K = cfg.n_codebooks
+    t0 = time.perf_counter()
+    card, host = _float32_weights(cfg)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(31)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, K, 40), dtype=np.int32))
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab, size=(3, 2, K, 1), dtype=np.int32))
+    wrong = {"head_codebooks_rolled": (dict(card, lm_head=card["lm_head"].roll(1, 0)), cfg),
+             "embed_codebooks_rolled": (dict(card, embed=card["embed"].roll(1, 0)), cfg)}
+    reqs_prompts = rng.integers(0, cfg.vocab, size=(3, K, 24), dtype=np.int32)
+
+    def reqs():
+        return [Request(rid=i, prompt=pr, max_new=8) for i, pr in enumerate(reqs_prompts)]
+
+    line = _card_vs_cpu(MUSICGEN_ARCH, cfg, card, host, prompt, steps, MUSICGEN_CARD_TOL,
+                        wrong, reqs=reqs)
+    line.update(codebooks=K, setup_s=setup_s)
+    log("musicgen card vs cpu:", json.dumps(line))
+    return line["paged_attn_launches"]
+
+
+def vlm_card_vs_cpu():
+    """qwen2-vl-2b at every published width (d_model 1536, 12 query heads
+    over 2 KV heads of 128, M-RoPE sections (16, 24, 24), d_ff 8960, vocab
+    151,936) over 2 of its 28 layers, float32 weights on the card and their
+    copy on the host: the logits of a prefill of 2 x 48 tokens with the
+    vision stub's extras (9 patches on a 3 x 3 grid) and of 3 decode steps
+    at (t, t, t) on paged serving caches (``paged_attn`` at G = 6 over 2 KV
+    heads on the card) agree within ``VLM_CARD_TOL``, and so do the
+    engine's greedy streams of 3 requests with extras.  Wrong M-RoPE
+    sections (reversed: (24, 24, 16)) or no 3-D ids (RoPE at (t, t, t))
+    move most logits past the bound.  Returns the card run's launches."""
+    import dataclasses
+
+    from repro_torch.data import vlm_stub_extras
+    from repro_torch.serving import Request
+    cfg = _two_layers(VLM_ARCH)
+    t0 = time.perf_counter()
+    card, host = _float32_weights(cfg)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(32)
+    S = 48
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, S), dtype=np.int32))
+    steps = torch.as_tensor(rng.integers(0, cfg.vocab, size=(3, 2, 1), dtype=np.int32))
+    extras = vlm_stub_extras(32, batch=2, seq=S, d_model=cfg.d_model, n_patches=S // 4)
+    attn = cfg.blocks[0].attn
+    reversed_sections = tuple(reversed(attn.mrope_sections))
+    sections = cfg.with_overrides(blocks=(dataclasses.replace(
+        cfg.blocks[0], attn=dataclasses.replace(attn, mrope_sections=reversed_sections)),))
+    rope = cfg.with_overrides(blocks=(dataclasses.replace(
+        cfg.blocks[0], attn=dataclasses.replace(attn, rope="rope")),))
+    wrong = {"sections_reversed": (card, sections), "rope_at_t_t_t": (card, rope)}
+    req_prompts = rng.integers(0, cfg.vocab, size=(3, 24), dtype=np.int32)
+    req_extras = vlm_stub_extras(33, batch=3, seq=24, d_model=cfg.d_model, n_patches=6)
+
+    def reqs():
+        return [Request(rid=i, prompt=pr, max_new=8,
+                        extras={k: v[i] for k, v in req_extras.items()})
+                for i, pr in enumerate(req_prompts)]
+
+    line = _card_vs_cpu(VLM_ARCH, cfg, card, host, prompt, steps, VLM_CARD_TOL, wrong,
+                        extras=extras, reqs=reqs)
+    line.update(patches=int(extras["patch_embeds"].shape[1]), sections=attn.mrope_sections,
+                setup_s=setup_s)
+    log("vlm card vs cpu:", json.dumps(line))
+    return line["paged_attn_launches"]
+
+
+def _load(arch):
+    """An arch at every published width and depth, random bf16 weights from a
+    seeded generator on the card."""
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+    cfg = registry.get_config(arch)
+    t0 = time.perf_counter()
+    params = materialize(lm.param_spec(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n = count_params(lm.param_spec(cfg))
+    log(f"{arch}: {n:,} params ({2 * n / 1e9:.2f} GB in bf16), all {cfg.n_layers} "
+        f"layers, materialized on the card in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _serving_line(arch, r, **extra):
+    s = r["summary"]
+    return {"arch": arch, "wall_s": r["wall"],
+            "decode_tokens_per_s": s["decode_tokens_per_s"], "ttft_s": s["ttft_s"],
+            "tpot_s": s["tpot_s"], "prefill_time_s": s["prefill_time_s"],
+            "mixed_dispatches": s["mixed"]["dispatches"],
+            "decode_dispatches": s["decode_dispatches"], "decode_steps": s["decode_steps"],
+            "preemptions": s["preemptions"], "forwards_through_kernel": r["forwards"],
+            "paged_attn_launches": r["launches"],
+            "launches_per_forward": r["launches"] / max(1, r["forwards"]),
+            "peak_memory_gb": r["peak"] / 1e9, "kv_cache_bytes": s["kv_cache_bytes"],
+            **extra}
+
+
+def _static_vs_engine(cfg, params, prompts, base, what, extras=None):
+    """``serve_static`` on the first ``SERVE_COMPARED`` prompts of
+    ``_batch_requests`` (those the engine served) against the engine's
+    streams, partings at reported near ties.  Returns its line."""
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.launch.serve import serve_static
+    paged_attention.launches = 0
+    t = time.perf_counter()
+    generated, tps = serve_static(cfg, batch=SERVE_COMPARED, prompt_len=prompts[0].shape[-1],
+                                  gen=SERVE_GEN, seed=0, params=params, verbose=False)
+    wall = time.perf_counter() - t
+    if paged_attention.launches:
+        raise AssertionError(f"{what}: the static loop launched paged_attention")
+    static = {i: [_token(g[..., j]) for j in range(SERVE_GEN)]
+              for i, g in enumerate(generated)}
+    n_equal = compare_streams(params, cfg, prompts, {i: base[i] for i in static}, static,
+                              what, extras=extras)
+    return {"wall_s": wall, "decode_tokens_per_s": tps, "streams_equal_to_engine": n_equal}
+
+
+def serve_musicgen():
+    """musicgen-medium served at every published width and all 48 layers
+    (random bf16 weights): 8 prompts of [4, 512] EnCodec tokens (the static
+    loop's, ``_batch_requests``) + 32 greedy frames with the engine's
+    defaults (mixed dispatch and prefix sharing on), every decode-carrying
+    forward launching ``paged_attention`` at G = 1, D = 64 once a layer
+    (:class:`counting`); on its first 2 prompts, horizon 4 and swap
+    pressure (66 blocks admit both prompts and cannot grow them; a swap
+    tier of 66) and the static loop, each held against the base run frame
+    by frame, partings only at reported near ties of a codebook's head;
+    then a decode profile with ``paged_attn``'s share.  Returns each run's
+    launches."""
+    from repro_torch.launch.serve import _batch_requests
+    cfg, params = _load(MUSICGEN_ARCH)
+    prompts = [r.prompt for r in _batch_requests(cfg, 8, 512, SERVE_GEN, 0)]
+    a = serve(cfg, params, prompts, SERVE_GEN)
+    log("musicgen serving:", json.dumps(_serving_line(
+        MUSICGEN_ARCH, a, layers=cfg.n_layers, codebooks=cfg.n_codebooks,
+        requests=len(prompts), prompt=list(prompts[0].shape), generated=SERVE_GEN)))
+    few = prompts[:SERVE_COMPARED]
+    runs = {"h4": serve(cfg, params, few, SERVE_GEN, horizon=4),
+            "swap": serve(cfg, params, few, SERVE_GEN, n_blocks=66, swap_blocks=66)}
+    if runs["swap"]["summary"]["preemptions"]["swap"] <= 0:
+        raise AssertionError(f"musicgen swap run: no swap preemption "
+                             f"{runs['swap']['summary']['preemptions']}")
+    h4 = runs["h4"]["summary"]
+    if h4["decode_dispatches"] >= h4["decode_steps"]:
+        raise AssertionError("musicgen horizon 4: no dispatch ran more than one decode step")
+    base = {rid: a["streams"][rid] for rid in range(SERVE_COMPARED)}
+    for what, r in runs.items():
+        n_equal = compare_streams(params, cfg, prompts, base, r["streams"],
+                                  f"musicgen {what} vs the default run")
+        log(f"musicgen serving ({what}):", json.dumps(_serving_line(
+            MUSICGEN_ARCH, r, streams_equal_to_default=n_equal)))
+    log("musicgen static loop:", json.dumps(_static_vs_engine(
+        cfg, params, prompts, a["streams"], "musicgen serve_static vs the engine")))
+    profile_decode(params, cfg, prompts,
+                   label="musicgen decode profile (8 slots, 4 steps each block)")
+    return {"serve_musicgen": a["launches"], "serve_musicgen_h4": runs["h4"]["launches"],
+            "serve_musicgen_swap": runs["swap"]["launches"]}
+
+
+def serve_vlm():
+    """qwen2-vl-2b served at every published width and all 28 layers (random
+    bf16 weights): 8 requests of 448 tokens with the vision stub's extras
+    (``_batch_requests``: 112 patches snapped to a 10 x 10 grid) + 32
+    greedy tokens (worst replay 479, inside the default chunk of 512), which
+    take the separate prefill; then 8 text-only requests of 512 + 32 through
+    mixed dispatch.  Every decode-carrying forward launches
+    ``paged_attention`` at G = 6 over 2 KV heads once a layer
+    (:class:`counting`).  On the first 2 extras requests, recompute pressure
+    (58 blocks admit both and cannot grow them, no swap tier: the replay
+    re-prefills prompt + generated tokens in one chunk, the tail at
+    (t, t, t)) and the static loop are held against the base run, partings
+    only at reported near ties of the reference forward with the extras.
+    Then a decode profile with ``paged_attn``'s share.  Returns each run's
+    launches."""
+    from repro_torch.launch.serve import _batch_requests
+    cfg, params = _load(VLM_ARCH)
+    reqs = _batch_requests(cfg, 8, VLM_PROMPT, SERVE_GEN, 0)
+    prompts, extras = [r.prompt for r in reqs], [r.extras for r in reqs]
+    chunk = 512
+    a = serve(cfg, params, prompts, SERVE_GEN, extras=extras, prefill_chunk=chunk)
+    s = a["summary"]
+    if s["mixed"]["dispatches"]:
+        raise AssertionError(f"vlm: extras requests took {s['mixed']['dispatches']} "
+                             f"mixed dispatches")
+    log("vlm serving (extras):", json.dumps(_serving_line(
+        VLM_ARCH, a, layers=cfg.n_layers, requests=len(prompts), prompt=VLM_PROMPT,
+        patches=int(extras[0]["patch_embeds"].shape[0]), generated=SERVE_GEN,
+        chunk=chunk)))
+    rng = np.random.default_rng(0)
+    text = list(rng.integers(0, cfg.vocab, size=(8, VLM_TEXT_PROMPT), dtype=np.int32))
+    b = serve(cfg, params, text, SERVE_GEN, prefill_chunk=chunk)
+    if not b["summary"]["mixed"]["dispatches"]:
+        raise AssertionError("vlm: text-only requests took no mixed dispatch")
+    log("vlm serving (text only):", json.dumps(_serving_line(
+        VLM_ARCH, b, requests=len(text), prompt=VLM_TEXT_PROMPT, generated=SERVE_GEN)))
+    few = prompts[:SERVE_COMPARED]
+    rec = serve(cfg, params, few, SERVE_GEN, extras=extras, prefill_chunk=chunk,
+                n_blocks=58, swap_blocks=0)
+    if rec["summary"]["preemptions"]["recompute"] <= 0:
+        raise AssertionError(f"vlm recompute run: no recompute preemption "
+                             f"{rec['summary']['preemptions']}")
+    base = {rid: a["streams"][rid] for rid in range(SERVE_COMPARED)}
+    n_equal = compare_streams(params, cfg, prompts, base, rec["streams"],
+                              "vlm recompute pressure vs the default run", extras=extras)
+    log("vlm serving (recompute pressure):", json.dumps(_serving_line(
+        VLM_ARCH, rec, streams_equal_to_default=n_equal)))
+    log("vlm static loop:", json.dumps(_static_vs_engine(
+        cfg, params, prompts, a["streams"], "vlm serve_static vs the engine",
+        extras=extras)))
+    profile_decode(params, cfg, text, label="vlm decode profile (8 slots, 4 steps each block)")
+    return {"serve_vlm": a["launches"], "serve_vlm_text": b["launches"],
+            "serve_vlm_recompute": rec["launches"]}
+
+
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
             "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
-            "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron")
+            "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron",
+            "musicgen_card", "vlm_card", "serve_musicgen", "serve_vlm")
 
 
 def run_picked(picked, name, smi):
@@ -2877,7 +3290,9 @@ def run_picked(picked, name, smi):
         free_device_memory()
     for phase, run in (("xlstm_card", xlstm_card_vs_cpu),
                        ("serve_xlstm", lambda: serve_xlstm(*load_xlstm())),
-                       ("serve_nemotron", lambda: serve_nemotron(*load_nemotron()))):
+                       ("serve_nemotron", lambda: serve_nemotron(*load_nemotron())),
+                       ("musicgen_card", musicgen_card_vs_cpu), ("vlm_card", vlm_card_vs_cpu),
+                       ("serve_musicgen", serve_musicgen), ("serve_vlm", serve_vlm)):
         if phase in picked:
             t = time.perf_counter()
             run()
@@ -3000,6 +3415,18 @@ def main(argv=None):
     del nemo_params
     free_device_memory()
     lap("serve_nemotron")
+    paged_launches["musicgen_card_vs_cpu"] = musicgen_card_vs_cpu()
+    free_device_memory()
+    lap("musicgen_card")
+    paged_launches["vlm_card_vs_cpu"] = vlm_card_vs_cpu()
+    free_device_memory()
+    lap("vlm_card")
+    paged_launches.update(serve_musicgen())
+    free_device_memory()
+    lap("serve_musicgen")
+    paged_launches.update(serve_vlm())
+    free_device_memory()
+    lap("serve_vlm")
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
                    "serve_sc": odin["sc"]["sc_mac_launches"]}
     lap("cnn experiment")

@@ -1,5 +1,6 @@
-"""Deterministic, step-indexed synthetic digits — the MNIST stand-in for the
-paper's CNN1/CNN2 accuracy experiments (no dataset downloads offline).
+"""Deterministic synthetic data: step-indexed digits — the MNIST stand-in
+for the paper's CNN1/CNN2 accuracy experiments (no dataset downloads
+offline) — and the Qwen2-VL vision stub's request extras.
 
 ``digits_batch(seed, step, batch=B)`` is a pure function of ``(seed, step)``:
 10 procedural glyph classes on a 28×28 canvas with per-sample placement
@@ -15,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["digits_batch"]
+__all__ = ["digits_batch", "vlm_stub_extras"]
 
 
 def _glyph_bank() -> np.ndarray:
@@ -60,3 +61,23 @@ def digits_batch(seed: int, step: int, *, batch: int, device="cpu") -> Dict[str,
     img = np.clip(canvas + noise, 0.0, 1.0).astype(np.float32)
     return {"image": torch.from_numpy(img[..., None]).to(device),
             "label": torch.from_numpy(labels).to(device)}
+
+
+def vlm_stub_extras(seed: int, *, batch: int, seq: int, d_model: int,
+                    n_patches: int = 64) -> Dict[str, np.ndarray]:
+    """The Qwen2-VL stub's extras as numpy arrays: ``patch_embeds`` float32
+    ``[batch, P, d_model]`` (0.02·N(0, 1) from a numpy generator seeded by
+    ``seed``; the JAX package's ``jax.random`` draws cannot be reproduced)
+    and ``pos3d`` int32 ``[batch, seq, 3]``, the JAX package's M-RoPE ids
+    exactly: ``n_patches`` snaps down to a square ``side x side`` grid of
+    patches at (0, h, w), and text token ``i`` sits at ``i + side`` on all
+    three axes."""
+    side = max(1, int(np.sqrt(n_patches)))
+    n_patches = side * side
+    rng = np.random.default_rng([seed, 2])
+    patch = (rng.standard_normal((batch, n_patches, d_model)) * 0.02).astype(np.float32)
+    pos = np.repeat(np.arange(seq, dtype=np.int32)[:, None] + side, 3, axis=1)
+    grid = np.arange(n_patches, dtype=np.int32)
+    pos[:n_patches] = np.stack([np.zeros_like(grid), grid // side, grid % side], axis=-1)
+    return {"patch_embeds": patch,
+            "pos3d": np.ascontiguousarray(np.broadcast_to(pos, (batch, seq, 3)))}

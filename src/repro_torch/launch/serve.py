@@ -22,6 +22,11 @@ Usage:
   python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
   # xLSTM (mLSTM/sLSTM cell state per slot, no attention: no pool):
   python -m repro_torch.launch.serve --arch xlstm-350m --smoke --device cpu
+  # MusicGen (prompts of [4, S] EnCodec tokens, 4 codebooks a frame):
+  python -m repro_torch.launch.serve --arch musicgen-medium --smoke --device cpu
+  # Qwen2-VL (M-RoPE; each prompt carries the vision stub's patch
+  # embeddings and (t, h, w) position ids as request extras):
+  python -m repro_torch.launch.serve --arch qwen2-vl-2b --smoke --device cpu
   # the static-batch loop over dense caches (the engine's parity baseline):
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b --smoke --device cpu --static
 
@@ -41,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.data.synthetic import vlm_stub_extras
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import lm, registry
@@ -51,11 +57,27 @@ from repro_torch.serving import (SCENARIOS, FaultPlan, ReliabilityConfig,
 __all__ = ["serve", "serve_static", "serve_listen", "main"]
 
 
+def _extras(cfg, batch: int, prompt_len: int, seed: int):
+    """The vision stub's extras for ``batch`` prompts (None for any other
+    model): ``min(1024, prompt_len // 4)`` patches, as the JAX package's
+    serving batch has."""
+    if not cfg.vision_stub:
+        return None
+    return vlm_stub_extras(seed, batch=batch, seq=prompt_len, d_model=cfg.d_model,
+                           n_patches=max(1, min(1024, prompt_len // 4)))
+
+
 def _batch_requests(cfg, batch: int, prompt_len: int, gen: int, seed: int):
-    """``batch`` random prompts of ``prompt_len`` tokens, all arriving at t=0."""
+    """``batch`` random prompts of ``prompt_len`` tokens (``[K, prompt_len]``
+    for a K-codebook model), all arriving at t=0; a vision-stub model's
+    requests carry their extras (:func:`_extras`)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, size=(batch, prompt_len), dtype=np.int32)
-    return [Request(rid=i, prompt=toks[i], max_new=gen) for i in range(batch)]
+    lead = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+    toks = rng.integers(0, cfg.vocab, size=(batch, *lead, prompt_len), dtype=np.int32)
+    ex = _extras(cfg, batch, prompt_len, seed)
+    return [Request(rid=i, prompt=toks[i], max_new=gen,
+                    extras=None if ex is None else {k: v[i] for k, v in ex.items()})
+            for i in range(batch)]
 
 
 def serve_static(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
@@ -63,19 +85,23 @@ def serve_static(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     """The static-batch loop: one prefill of the ``batch`` prompts of
     ``_batch_requests`` into fresh dense caches, then ``gen`` lockstep decode
     steps; every slot runs to the end.  ``params=None`` draws the weights the
-    engine draws for ``seed``.  Returns (generated [B, gen] int32 numpy
-    array, decode tokens/s)."""
+    engine draws for ``seed``.  A vision-stub model's prefill takes the
+    requests' extras.  Returns (generated [B, gen] (or [B, K, gen]) int32
+    numpy array, decode tokens/s)."""
     dev = resolve_device(device)
     if params is None:
         gen_ = torch.Generator(device=dev).manual_seed(seed)
         params = materialize(lm.param_spec(cfg), gen_, dev)
     prompts = np.stack([r.prompt for r in _batch_requests(cfg, batch, prompt_len, gen,
                                                           seed)])
+    data = {"tokens": prompts}
+    data.update(_extras(cfg, batch, prompt_len, seed) or {})
     prefill = make_prefill_step(cfg, max_len=prompt_len + gen)
     decode = make_decode_step(cfg)
     t0 = time.perf_counter()
-    last, caches = prefill(params, {"tokens": torch.as_tensor(prompts, device=dev)})
-    tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    last, caches = prefill(params, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in data.items()})
+    tok = torch.argmax(last, dim=-1).to(torch.int32)[..., None]       # [B,1] / [B,K,1]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     outs = []
@@ -97,7 +123,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
           params=None, verbose: bool = True, slots: int | None = None,
           block_size: int | None = None, **engine_kwargs):
     """Serve ``batch`` random prompts through the engine.  Returns
-    (generated [B, gen] int32 numpy array, decode tokens/s)."""
+    (generated [B, gen] (or [B, K, gen]) int32 numpy array, decode tokens/s)."""
     slots = slots or batch
     max_len = prompt_len + gen
     if block_size is None:

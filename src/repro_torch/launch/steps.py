@@ -57,14 +57,18 @@ def pageable_block(b: BlockConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
-    """(params, batch) → (last_logits [B,V], caches): fresh dense caches of
-    ``max_len`` rows (scalar ``pos``; a ring of exactly ``window`` rows for
-    a windowed layer) filled by one forward over ``batch["tokens"] [B,S]``."""
+    """(params, batch) → (last_logits [B,V] or [B,K,V], caches): fresh dense
+    caches of ``max_len`` rows (scalar ``pos``; a ring of exactly ``window``
+    rows for a windowed layer) filled by one forward over
+    ``batch["tokens"]`` ([B,S] or [B,K,S]), with the vision stub's
+    ``patch_embeds`` and ``pos3d`` when the batch carries them."""
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
         caches = lm.init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
-        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches)
+        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
+                                       patch_embeds=batch.get("patch_embeds"),
+                                       pos3d=batch.get("pos3d"))
         return logits[:, -1], caches
 
     return prefill_step
@@ -82,12 +86,14 @@ def _cache_start(caches):
 
 
 def _argmax_tokens(logits):
-    """Greedy next tokens [B, 1] int32 from the last row of ``logits``."""
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    """Greedy next tokens from the last row of ``logits``: [B, 1] int32, or
+    [B, K, 1] from multi-codebook logits [B, S, K, V]."""
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[..., None]
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
-    """(params, caches, tokens [B,1], tables=None) → (next_tokens [B,1], caches).
+    """(params, caches, tokens [B,1] or [B,K,1], tables=None) → (next_tokens
+    of the same shape, caches).
 
     The query position comes from the caches' ``pos`` leaf: without it the
     token would run at position 0, with the wrong RoPE phase and a causal
@@ -188,8 +194,8 @@ def make_slot_prefill_step(cfg: ModelConfig, max_len: int, window_headroom: int 
                            paged: bool = True) -> Callable:
     """Chunked prefill of ONE batch slot of a serving cache.
 
-    (params, caches, tokens [1,C], slot, start, reset, tables [B,P])
-        → (last_logits [1,V], caches)
+    (params, caches, tokens [1,C] or [1,K,C], slot, start, reset, tables [B,P],
+     patch_embeds=None, pos3d=None) → (last_logits [1,V] or [1,K,V], caches)
 
     Pool leaves pass whole and the chunk's K/V rows go straight into the
     slot's blocks (``paged``; ``tables`` is ignored otherwise).  The slot's
@@ -197,13 +203,14 @@ def make_slot_prefill_step(cfg: ModelConfig, max_len: int, window_headroom: int 
     ``[start, start+C)`` and written back.  ``reset`` (a fresh admission, or
     a mid-sequence one behind a shared prefix) first restores them to their
     true initial state, that of ``init_serving_caches`` for one slot: zero
-    K/V rows and recurrent state, and ``pos = start``.
+    K/V rows and recurrent state, and ``pos = start``.  ``patch_embeds
+    [1, P, d]`` and the chunk's ``pos3d [1, C, 3]`` go to the forward.
     """
     init_kw = dict(window_headroom=window_headroom, round_to=round_to,
                    block_size=block_size, n_blocks=1 if paged else 0)
 
     def prefill_chunk(params, caches, tokens, slot: int, start: int, reset: bool,
-                      tables):
+                      tables, patch_embeds=None, pos3d=None):
         def slice_slot(name, leaf, fresh=None):
             if name in POOL_LEAVES:
                 return leaf
@@ -216,8 +223,9 @@ def make_slot_prefill_step(cfg: ModelConfig, max_len: int, window_headroom: int 
             sl = map_with_name(slice_slot, caches, fresh)
         else:
             sl = map_with_name(slice_slot, caches)
-        logits, sl, _ = lm.forward(params, tokens, cfg, caches=sl, start_pos=start,
-                                   moe_no_drop=True,
+        logits, sl, _ = lm.forward(params, tokens, cfg, caches=sl,
+                                   patch_embeds=patch_embeds, pos3d=pos3d,
+                                   start_pos=start, moe_no_drop=True,
                                    tables=tables[slot:slot + 1] if paged else None)
         for (_, name, leaf), (_, _, new) in zip(leaves_with_path(caches),
                                                 leaves_with_path(sl)):
@@ -230,14 +238,14 @@ def make_slot_prefill_step(cfg: ModelConfig, max_len: int, window_headroom: int 
 
 def _sample_tokens(logits, temperature: float, top_k: int,
                   generator: Optional[torch.Generator]):
-    """Next-token pick from ``logits [B, S, V]``: greedy argmax, or
-    temperature + top-k sampling (Gumbel-max over float32 logits, noise drawn
-    from ``generator``) when ``generator`` is given and ``temperature > 0``.
-    Returns [B, 1] int32."""
+    """Next-token pick from ``logits [B, S, V]`` (or [B, S, K, V]): greedy
+    argmax, or temperature + top-k sampling (Gumbel-max over float32 logits,
+    noise drawn from ``generator``) when ``generator`` is given and
+    ``temperature > 0``.  Returns [B, 1] (or [B, K, 1]) int32."""
     last = logits[:, -1]
     greedy = torch.argmax(last, dim=-1).to(torch.int32)
     if generator is None or temperature <= 0:
-        return greedy[:, None]
+        return greedy[..., None]
     masked = last.float()
     if top_k:
         kth = torch.topk(masked, top_k, dim=-1).values[..., -1:]
@@ -245,7 +253,7 @@ def _sample_tokens(logits, temperature: float, top_k: int,
     u = torch.rand(masked.shape, generator=generator, device=masked.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     scaled = masked / max(temperature, 1e-6) + gumbel
-    return torch.argmax(scaled, dim=-1).to(torch.int32)[:, None]
+    return torch.argmax(scaled, dim=-1).to(torch.int32)[..., None]
 
 
 def _decode_forward(params, caches, tokens, lengths, active, tables, cfg: ModelConfig):
@@ -273,6 +281,7 @@ def make_serving_decode_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     (params, caches, tokens [B,1], lengths [B], active [B], tables [B,P],
      generator, temperature) → (next [B,1], caches)
 
+    A multi-codebook model's tokens and next tokens are [B,K,1].
     Inactive slots still flow through the fixed ``[B, 1]`` forward, but their
     writes land in the write-off block and their ``pos`` does not advance.
     """
@@ -291,6 +300,7 @@ def make_serving_decode_guarded(cfg: ModelConfig, top_k: int = 0) -> Callable:
 
     (params, caches, tokens [B,1], lengths [B], active [B], tables [B,P],
      generator, temperature, poison [B]) → (next [B,1], bad [B], caches)
+    (tokens and next tokens [B,K,1] for a multi-codebook model)
 
     The forward is the plain decode step's.  ``poison`` sets the marked
     slots' logits to NaN after it (the PCRAM-drift analog at the logit
@@ -320,6 +330,8 @@ def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     (params, caches, tokens [B,Q], lengths [B], q_lens [B], decode [B],
      active [B], tables [B,P], generator, temperature)
         → (next_tokens [B,1], last_logits [B,V], caches)
+    (tokens [B,K,Q], next tokens [B,K,1] and last logits [B,K,V] for a
+    multi-codebook model)
 
     Every slot contributes ``q_lens[s]`` real query rows, right-aligned in
     the ``Q`` columns: a decode slot rides at ``q_lens = 1`` (flagged in
@@ -351,36 +363,40 @@ def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
 def make_serving_decode_horizon(cfg: ModelConfig, H: int, top_k: int = 0) -> Callable:
     """``H`` decode steps in ONE dispatch, the carry kept on the device.
 
-    (params, caches, tokens [B,1], lengths [B], active [B], remaining [B],
-     tables [B,P], generators, temperature, eos_id)
-        → (token_block [B, H], counts [B], last_tokens [B, 1], caches)
+    (params, caches, tokens [B,1] or [B,K,1], lengths [B], active [B],
+     remaining [B], tables [B,P], generators, temperature, eos_id)
+        → (token_block [B, H] or [B, K, H], counts [B], last_tokens, caches)
 
     Each inner step runs the activity-masked decode and feeds its token back
     as the next input.  A slot freezes once its ``remaining`` budget reaches
-    zero or it emits ``eos_id`` (``< 0`` disables EOS); frozen slots keep
-    flowing through the forward with their cache updates discarded.  Slot
-    ``s``'s valid tokens are ``token_block[s, :counts[s]]``.  ``generators``
-    holds one generator per inner step (None for greedy).
+    zero or it emits ``eos_id`` (``< 0`` disables EOS; a multi-codebook
+    frame ends on its first codebook); frozen slots keep flowing through the
+    forward with their cache updates discarded.  Slot ``s``'s valid tokens
+    are ``token_block[s, ..., :counts[s]]``.  ``generators`` holds one
+    generator per inner step (None for greedy).
     """
 
     def horizon_step(params, caches, tokens, lengths, active, remaining, tables,
                      generators=None, temperature: float = 0.0, eos_id: int = -1):
+        B = lengths.shape[0]
+        tok_mask_shape = (B,) + (1,) * (tokens.ndim - 1)
         toks, emitted = [], []
         tok, act, rem = tokens, active, remaining
         for h in range(H):
             gen = generators[h] if generators is not None else None
             nxt, caches = _masked_decode(params, caches, tok, lengths, act, tables,
                                          gen, temperature, cfg, top_k)
-            hit_eos = (nxt[:, 0] == eos_id) if eos_id >= 0 else torch.zeros_like(act)
+            first = nxt.reshape(B, -1)[:, 0]
+            hit_eos = (first == eos_id) if eos_id >= 0 else torch.zeros_like(act)
             step = act.to(torch.int32)
             rem = rem - step
             lengths = lengths + step
             toks.append(nxt)
             emitted.append(act)
-            tok = torch.where(act[:, None], nxt, tok)
+            tok = torch.where(act.reshape(tok_mask_shape), nxt, tok)
             act = act & (rem > 0) & ~hit_eos
         counts = torch.stack(emitted).to(torch.int32).sum(dim=0)          # [B]
-        block = torch.cat(toks, dim=1)                                    # [B, H]
+        block = torch.cat(toks, dim=-1)                          # [B, H] / [B, K, H]
         return block, counts, tok, caches
 
     return horizon_step

@@ -1,5 +1,8 @@
 """Decoder LM over stacked layer segments (dense, MoE, Hymba and xLSTM
-stacks, GQA or MLA attention).
+stacks, GQA or MLA attention), with MusicGen's K codebooks (tokens
+``[B, K, S]``: the K embeddings of a frame summed, K heads) and Qwen2-VL's
+vision stub (precomputed patch embeddings over the leading positions, and
+M-RoPE's (t, h, w) position ids).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
 package; a Python loop over the layers takes the place of its ``lax.scan``
@@ -43,27 +46,23 @@ def _odin(cfg: ModelConfig) -> Optional[OdinConfig]:
     return None if cfg.odin_mode == "exact" else OdinConfig(mode=cfg.odin_mode)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks > 1 or cfg.vision_stub:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook and vision-stub models are not "
-            "ported yet (see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
 def param_spec(cfg: ModelConfig) -> Dict:
-    _check_supported(cfg)
+    K = cfg.n_codebooks
     spec: Dict = {
-        "embed": embed_spec(cfg.vocab, cfg.d_model),
+        "embed": embed_spec(cfg.vocab, cfg.d_model) if K == 1
+        else ParamSpec((K, cfg.vocab, cfg.d_model), (None, "vocab", "embed")),
         "final_norm": norm_spec(cfg.d_model),
         "segments": [_stack(block_spec(b, cfg.d_model), b.n_layers) for b in cfg.blocks],
     }
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"),
-                                    init="fan_in")
+        spec["lm_head"] = (
+            ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"), init="fan_in")
+            if K == 1 else
+            ParamSpec((K, cfg.d_model, cfg.vocab), (None, "embed", "vocab"), init="fan_in"))
     if cfg.mtp:
         spec["mtp"] = {
             "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), ("embed", "embed2"),
@@ -90,12 +89,16 @@ def _restack(stacked, per_layer, name: str = ""):
     return torch.stack(per_layer)
 
 
-def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
-            moe_no_drop: bool = False, tables=None, spec_decode: bool = False,
-            q_lens=None, q_decode=None):
-    """tokens: [B,S] → (logits [B,S,V], new_caches, hidden).
+def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
+            pos3d=None, start_pos=None, moe_no_drop: bool = False, tables=None,
+            spec_decode: bool = False, q_lens=None, q_decode=None):
+    """tokens: [B,S] (or [B,K,S] multi-codebook) → (logits [B,S,V] (or
+    [B,S,K,V]), new_caches, hidden).
 
-    ``caches``: list of per-segment stacked caches (or None).  ``start_pos``:
+    ``caches``: list of per-segment stacked caches (or None).
+    ``patch_embeds [B, P, d]`` (vision stub) replace the embeddings of
+    positions ``0..P-1``; ``pos3d [B, S, 3]`` are the M-RoPE position ids of
+    the S tokens.  ``start_pos``:
     absolute position of tokens[:, 0] (a scalar or per-slot [B, 1] tensor);
     defaults to 0.  ``moe_no_drop``: route MoE blocks without capacity
     dropping (the serving paths: exact, per-token routing).  ``tables``:
@@ -105,9 +108,22 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
     ``nn.attention._paged_gqa_core``); with ``q_lens`` the ``start_pos`` is
     the per-slot position of row 0 of the right-aligned tile.
     """
-    _check_supported(cfg)
     odin = _odin(cfg)
-    x = embed(tokens, params["embed"])
+    if cfg.n_codebooks > 1:
+        # MusicGen: the K codebook embeddings of a frame, stacked [B, K, S, d]
+        # and summed in one reduction (the reference's order of rounding)
+        K = cfg.n_codebooks
+        per = torch.stack([embed(tokens[:, k], params["embed"][k]) for k in range(K)],
+                          dim=1)
+        x = per.sum(dim=1)
+    else:
+        x = embed(tokens, params["embed"])
+    if cfg.vision_stub and patch_embeds is not None:
+        # the patch rows overlay the image-token positions, out of place
+        n = patch_embeds.shape[1]
+        if n > x.shape[1]:
+            raise ValueError(f"{n} patch embeddings overlay only {x.shape[1]} tokens")
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
     B, S = x.shape[0], x.shape[1]
     start = 0 if start_pos is None else start_pos
     positions = (start + torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -125,14 +141,17 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, start_pos=None,
                                 odin=odin, norm_eps=cfg.norm_eps,
                                 moe_no_drop=moe_no_drop, tables=tables,
                                 spec_decode=spec_decode, q_lens=q_lens,
-                                q_decode=q_decode)
+                                q_decode=q_decode, pos3d=pos3d)
             per_layer.append(c2)
         new_caches.append(None if c is None else _restack(c, per_layer))
 
     hidden = x
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x, head.to(x.dtype))
+    if cfg.n_codebooks > 1:
+        logits = torch.einsum("bsd,kdv->bskv", x, head.to(x.dtype))
+    else:
+        logits = torch.matmul(x, head.to(x.dtype))
     return logits, (new_caches if caches is not None else None), hidden
 
 

@@ -26,7 +26,9 @@ saves a pool-sized copy per layer).  The returned cache dict holds the same
 pool tensors and a new ``pos`` vector.  Dense and ring rows are written
 **out of place**, as the JAX package writes them, and so are MLA's latent
 rows: the serving steps merge each slot's old and new cache by its activity
-mask, which needs both.  M-RoPE is not ported yet.
+mask, which needs both.  GQA rotates q and k with RoPE or, for Qwen2-VL,
+M-RoPE over (t, h, w) position ids (``pos3d``; without them every axis
+takes the token's position).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.paged_attn import paged_attention
-from repro_torch.nn.layers import apply_rope, linear, linear_spec, rmsnorm
+from repro_torch.nn.layers import apply_mrope, apply_rope, linear, linear_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
 
 __all__ = ["attn_spec", "attention", "init_cache", "init_paged_cache", "sdpa",
@@ -53,9 +55,6 @@ NEG_INF = -1e30
 # decode working set.
 KV_SCALE = 16.0
 
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (see ROADMAP.md)")
 
 
 def _cache_write(x: torch.Tensor, cache_dtype) -> torch.Tensor:
@@ -403,17 +402,21 @@ def _dense_gqa_core(q, k, v, cfg: AttnConfig, positions, cache):
 
 
 def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
-                   spec_decode: bool = False, q_lens=None, q_decode=None):
+                   spec_decode: bool = False, q_lens=None, q_decode=None, pos3d=None):
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = linear(x, p["q"], odin).reshape(B, S, H, D)
     k = linear(x, p["k"], odin).reshape(B, S, Hkv, D)
     v = linear(x, p["v"], odin).reshape(B, S, Hkv, D)
-    if cfg.rope == "rope":
+    if cfg.rope == "mrope":
+        if pos3d is None:
+            # text-only rows and decode steps: M-RoPE at (t, t, t)
+            pos3d = positions[..., None].expand(B, S, 3)
+        q = apply_mrope(q, pos3d, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, pos3d, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope != "none":
-        raise _not_ported(f"{cfg.rope} positions")
     if cache is None:
         o = sdpa(q, k, v, positions, positions, cfg.window)
         new_cache = None
@@ -492,12 +495,14 @@ def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):
 
 
 def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
-              tables=None, spec_decode: bool = False, q_lens=None, q_decode=None):
+              tables=None, spec_decode: bool = False, q_lens=None, q_decode=None,
+              pos3d=None):
     """Returns (output [B,S,d_model], new_cache).  ``tables`` are the per-slot
     block tables of the paged serving cache (ignored by dense and MLA
     caches); ``spec_decode``, ``q_lens`` and ``q_decode`` as in
     :func:`_paged_gqa_core` (a dense or MLA cache already attends an S-token
-    tile with decode semantics)."""
+    tile with decode semantics).  ``pos3d [B, S, 3]``: the (t, h, w)
+    position ids of an M-RoPE layer (ignored by every other layer)."""
     B, S, _ = x.shape
     if q_lens is not None and (cache is None or "k_pool" not in cache):
         raise ValueError("q_lens (mixed dispatch) requires a paged GQA cache")
@@ -510,4 +515,5 @@ def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,
     if cfg.kind == "mla":
         return _mla_attention(p, x, cfg, positions, cache, odin)
     return _gqa_attention(p, x, cfg, positions, cache, odin, tables,
-                          spec_decode=spec_decode, q_lens=q_lens, q_decode=q_decode)
+                          spec_decode=spec_decode, q_lens=q_lens, q_decode=q_decode,
+                          pos3d=pos3d)

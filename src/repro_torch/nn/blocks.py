@@ -96,11 +96,12 @@ def block_cache(cfg: BlockConfig, d_model: int, batch: int, max_len: int,
 
 def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
                 norm_eps: float = 1e-5, moe_no_drop: bool = False, tables=None,
-                spec_decode: bool = False, q_lens=None, q_decode=None):
+                spec_decode: bool = False, q_lens=None, q_decode=None, pos3d=None):
     """(params, x [B,S,d], cache) → (x', cache').  ``moe_no_drop`` routes an
     MoE block without capacity dropping; ``tables``, ``spec_decode``,
     ``q_lens`` and ``q_decode`` go to the paged attention core (``q_lens``,
-    the mixed tile, for dense and MoE blocks only)."""
+    the mixed tile, for dense and MoE blocks only); ``pos3d`` to an M-RoPE
+    attention layer."""
     _check_kind(cfg)
     if q_lens is not None and cfg.kind not in ("dense", "moe"):
         raise ValueError("mixed dispatch (q_lens) supports paged GQA blocks only")
@@ -117,7 +118,7 @@ def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
         h = rmsnorm(x, p["ln1"], norm_eps)
         a, ac = attention(p["attn"], h, cfg.attn, positions=positions,
                           cache=None if cache is None else cache["attn"], odin=odin,
-                          tables=tables)
+                          tables=tables, pos3d=pos3d)
         s, sc = ssm_block(p["ssm"], h, cfg.ssm,
                           state=None if cache is None else cache["ssm"], odin=odin)
         # Hymba fusion: per-branch output norm, learnable per-channel mix
@@ -132,7 +133,7 @@ def block_apply(p, x, cfg: BlockConfig, cache=None, positions=None, odin=None,
                       positions=positions,
                       cache=None if cache is None else cache["attn"], odin=odin,
                       tables=tables, spec_decode=spec_decode, q_lens=q_lens,
-                      q_decode=q_decode)
+                      q_decode=q_decode, pos3d=pos3d)
     x = x + a
     h = rmsnorm(x, p["ln2"], norm_eps)
     if cfg.kind == "dense":

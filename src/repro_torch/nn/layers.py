@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -15,7 +16,7 @@ from repro_torch.nn.module import ParamSpec
 
 __all__ = [
     "linear_spec", "linear", "norm_spec", "rmsnorm", "layernorm",
-    "embed_spec", "embed", "activation", "rope_freqs", "apply_rope",
+    "embed_spec", "embed", "activation", "rope_freqs", "apply_rope", "apply_mrope",
 ]
 
 
@@ -91,3 +92,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)          # [D/2]
     angles = positions[..., None, None].float() * freqs              # [B, S, 1, D/2]
     return _rotate(x, angles)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections: Tuple[int, ...],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the ``D/2`` frequencies split into
+    ``sections`` (summing to ``D/2``), section ``i`` turned by axis ``i`` of
+    the (t, h, w) position ids.
+
+    x: [B, S, H, D]; positions_3d: [B, S, 3] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)          # [D/2]
+    splits = [int(s) for s in np.cumsum(sections)[:-1]]
+    parts = torch.tensor_split(freqs, splits)
+    angles = torch.cat([positions_3d[..., i, None].float() * parts[i]
+                        for i in range(len(sections))], dim=-1)      # [B, S, D/2]
+    return _rotate(x, angles[..., None, :])

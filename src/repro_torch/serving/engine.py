@@ -30,8 +30,12 @@ readback of each dispatch) and nowhere else.
 
 Prefix sharing and mixed dispatch need a fully paged model (every cache
 leaf in the pool, or the ``pos`` counter): they turn off by themselves on
-any other and raise when forced on.  Not ported yet (see ROADMAP.md):
-requests carrying ``extras``.
+any other and raise when forced on.  A multi-codebook model (MusicGen)
+carries its K codebooks through every token tensor (``[slots, K, 1]``
+pending tokens, ``[slots, K, Q]`` mixed tiles, ``[slots, K, h]`` horizon
+blocks).  Requests carrying ``extras`` (the vision stub's ``patch_embeds``
+and ``pos3d``) take the separate one-chunk prefill, never mixed dispatch or
+a shared prefix.
 """
 from __future__ import annotations
 
@@ -70,10 +74,6 @@ from repro_torch.tree import leaves_with_path
 __all__ = ["ServingEngine"]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet (see ROADMAP.md)")
-
-
 class ServingEngine:
     """Drives continuous-batching inference over ``slots`` cache slots.
 
@@ -94,8 +94,11 @@ class ServingEngine:
       are counted as in the JAX engine); ``xla_annotations`` wraps each
       dispatch in a ``torch.profiler.record_function`` range instead;
     * the guarded decode step is an eager function built with the others,
-      not an executable compiled on first use;
-    * requests with ``extras`` raise ``NotImplementedError``.
+      not an executable compiled on first use.
+
+    As in the JAX engine, a request carrying ``extras`` must fit its worst
+    replay (prompt + max_new - 1 tokens) in one prefill chunk, or
+    ``submit`` raises ``ValueError``.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_len: int,
@@ -304,7 +307,9 @@ class ServingEngine:
         self._churn_mark = 0
         self._spec_mark = (0, 0)
 
-        self._last_tok = torch.zeros((slots, 1), dtype=torch.int32, device=self.device)
+        K = cfg.n_codebooks
+        self._last_tok = torch.zeros((slots, K, 1) if K > 1 else (slots, 1),
+                                     dtype=torch.int32, device=self.device)
         # per-slot token-history ring for the on-device n-gram draft match
         # (right-aligned, -1 padded; shifted on the device by every decode)
         self._hist = (torch.full((slots, self.spec_hist), -1, dtype=torch.int32,
@@ -379,7 +384,8 @@ class ServingEngine:
                 "scrub_rows": st.scrub_rows}
 
     def _set_last_tok(self, slot: int, tok) -> None:
-        self._last_tok[slot] = int(np.ravel(tok)[0])
+        self._last_tok[slot] = self._dev(
+            np.asarray(tok, np.int32).reshape(self._last_tok.shape[1:]))
 
     def _seed_hist(self, req: Request) -> None:
         """(Re)build the slot's draft-match history from the request's full
@@ -449,8 +455,16 @@ class ServingEngine:
             raise ShuttingDown(
                 f"request {req.rid}: engine is draining — submissions after "
                 f"drain() begin get a typed rejection, never a silent hang")
-        if req.extras:
-            raise _not_ported(f"request {req.rid}: extras (patch_embeds/pos3d)")
+        # the extras overlay needs the whole replay in one prefill chunk: the
+        # longest is the prompt and every generated token but the pending
+        # one (a recompute preemption at max_new - 1), so an accepted request
+        # is never refused at readmission
+        worst = req.prompt_len + req.max_new - 1
+        if req.extras and worst > self.chunk:
+            raise ValueError(
+                f"request {req.rid}: extras (patch_embeds/pos3d) need the "
+                f"worst-case replay (prompt+max_new-1 = {worst}) to fit one "
+                f"prefill chunk ({self.chunk})")
         if req.deadline is None and self.deadline_s is not None:
             req.deadline = req.arrival + self.deadline_s
         if req.queue_timeout is None and self.queue_timeout_s is not None:
@@ -794,6 +808,18 @@ class ServingEngine:
         fresh = req.n_generated == 0
         toks = req.replay_tokens()
         ntok = toks.shape[-1]
+        extras = req.extras or {}
+        pos3d = extras.get("pos3d")
+        if pos3d is not None:
+            pos3d = np.asarray(pos3d)
+            if ntok > pos3d.shape[0]:
+                # a recompute replay covers generated tokens too: they take
+                # the (t, t, t) positions their decode steps used
+                tail = np.repeat(np.arange(pos3d.shape[0], ntok,
+                                           dtype=pos3d.dtype)[:, None], 3, axis=1)
+                pos3d = np.concatenate([pos3d, tail], axis=0)
+        patch = extras.get("patch_embeds")
+        patch = None if patch is None else self._dev(np.asarray(patch))[None]
         start0 = self._apply_grant(grant)
         trace = self.tracer.enabled
         t0 = self._now()
@@ -805,9 +831,14 @@ class ServingEngine:
             while start < ntok:
                 c = min(self.chunk, ntok - start)
                 chunk_toks = self._dev(np.asarray(toks[..., start:start + c], np.int32)[None])
+                kw = {}
+                if patch is not None:
+                    kw["patch_embeds"] = patch
+                if pos3d is not None:
+                    kw["pos3d"] = self._dev(pos3d[start:start + c])[None]
                 ll, self.caches = self._prefill(
                     self.params, self.caches, chunk_toks, req.slot, start,
-                    start == start0, tables)
+                    start == start0, tables, **kw)
                 self.stats.dispatches += 1
                 chunk_sizes.append(c)
                 start += c
@@ -882,7 +913,8 @@ class ServingEngine:
             return
         q_max = max([1] + [c for _, _, c in parts])
         Q = 1 << (q_max - 1).bit_length()
-        tok = np.zeros((self.slots, Q), np.int32)
+        K = self.cfg.n_codebooks
+        tok = np.zeros((self.slots, K, Q) if K > 1 else (self.slots, Q), np.int32)
         q_lens = np.zeros(self.slots, np.int32)
         active = np.zeros(self.slots, bool)
         dm = np.zeros(self.slots, bool)
@@ -891,11 +923,12 @@ class ServingEngine:
             dm[r.slot] = True
             q_lens[r.slot] = 1
             # the pending token is host-resident in the stream
-            tok[r.slot, -1] = int(np.ravel(r.generated[-1])[0])
+            tok[r.slot, ..., -1] = np.asarray(r.generated[-1], np.int32)
         for r, start, c in parts:
             active[r.slot] = True
             q_lens[r.slot] = c
-            tok[r.slot, Q - c:] = np.asarray(r.replay_tokens(), np.int32)[start:start + c]
+            tok[r.slot, ..., Q - c:] = np.asarray(
+                r.replay_tokens(), np.int32)[..., start:start + c]
         t0 = self._now()
         tables = self._refresh_tables()
         dm_dev = self._dev(dm)
@@ -934,13 +967,14 @@ class ServingEngine:
             self.stats.decode_dispatches += 1
             self.stats.active_slot_steps += dec_rows
             self.stats.slot_steps += self.slots
-            self._last_tok = torch.where(dm_dev[:, None], nxt, self._last_tok)
+            dmask = dm_dev.reshape((self.slots,) + (1,) * (self._last_tok.ndim - 1))
+            self._last_tok = torch.where(dmask, nxt, self._last_tok)
             self._shift_hist(nxt, dm_dev)
         for r in decode:
             self._record_writes(r, int(self._slot_len[r.slot]), 1, now)
             self._slot_len[r.slot] += 1
             self.stats.decode_tokens += 1
-            self._emit(r, host[r.slot, 0], now)
+            self._emit(r, host[r.slot, ..., 0], now)
             if r.done:
                 self._complete(r, now)
         for r, start, c in parts:
@@ -1051,7 +1085,9 @@ class ServingEngine:
                     flow=req.rid)
                 self.tracer.flow_event("t", "request", track, req.rid, ts=t0)
         for req in plan.admit:
-            if self.mixed:
+            if self.mixed and not req.extras:
+                # requests carrying extras keep the separate prefill: the
+                # patch overlay needs the whole replay in one dispatch
                 self._stage_mixed_admission(req, plan.grants.get(req.rid))
             else:
                 self._prefill_request(req, now, plan.grants.get(req.rid))
@@ -1134,7 +1170,10 @@ class ServingEngine:
                 self.params, self.caches, self._last_tok,
                 self._dev(self._slot_len), active_dev, tables,
                 self._generator(self.stats.decode_steps), self.temperature)
-            host = nxt.cpu().numpy()                 # syncs the step
+            # syncs the step; a copy, as emitted frames are views of it and
+            # on the CPU ``nxt`` becomes ``_last_tok``, which admissions
+            # overwrite in place
+            host = nxt.cpu().numpy().copy()
         wall = self._now() - t0
         self.stats.decode_time += wall
         self.metrics.observe("dispatch_decode_s", wall)
@@ -1160,7 +1199,7 @@ class ServingEngine:
             self._record_writes(req, int(self._slot_len[s]), 1, now)
             self._slot_len[s] += 1
             self.stats.decode_tokens += 1
-            self._emit(req, host[s, 0], now)
+            self._emit(req, host[s, ..., 0], now)
             if req.done:
                 self._complete(req, now)
 
@@ -1189,7 +1228,10 @@ class ServingEngine:
                 self._dev(self._slot_len), active_dev, tables,
                 self._generator(self.stats.decode_steps), self.temperature,
                 self._dev(poison))
-            host = nxt.cpu().numpy()                 # syncs the step
+            # syncs the step; a copy, as emitted frames are views of it and
+            # on the CPU ``nxt`` becomes ``_last_tok``, which admissions
+            # overwrite in place
+            host = nxt.cpu().numpy().copy()
             badh = bad.cpu().numpy()
         wall = self._now() - t0
         self.stats.decode_time += wall
@@ -1224,7 +1266,7 @@ class ServingEngine:
                 continue
             self._slot_len[s] += 1
             self.stats.decode_tokens += 1
-            self._emit(req, host[s, 0], now)
+            self._emit(req, host[s, ..., 0], now)
             if req.done:
                 self._complete(req, now)
 
@@ -1281,7 +1323,7 @@ class ServingEngine:
                 if hh < counts[s]:
                     self._slot_len[s] += 1
                     self.stats.decode_tokens += 1
-                    self._emit(self.sched.running[s], block[s, hh], t_h)
+                    self._emit(self.sched.running[s], block[s, ..., hh], t_h)
         for s in active_slots:
             req = self.sched.running[s]
             if req.done:

@@ -149,7 +149,23 @@ Phases, each fatal on failure:
    mode, and hold one batch's logits in every ODIN mode on the card equal
    to the CPU plain path bit for bit;
 16. run the kernel bench entry point (``launch/kernel_bench``), the path of
-   ``int8_mm``, and count its launches.
+   ``int8_mm``, and count its launches;
+17. training, card against CPU (``train_card``): one train step (loss,
+   gradients, AdamW) of each of the ten smoke configs in float32 and of
+   phi4-mini-3.8b's widths over 2 layers with ``remat="full"``, loss,
+   ``grad_norm`` and every gradient leaf within ``TRAIN_CARD_TOL``; labels
+   shifted by one position move the loss past it;
+18. phi4-mini-3.8b trained at every width and all 32 layers (``train_phi4``,
+   bf16 weights, ``remat="full"``, 4 x 512 tokens a step), 6 steps with
+   float32 and 6 with int8 AdamW moments: step ms, tokens/s, share of the
+   bf16 peak, peak memory, the loss curve, a profile of one step with the
+   AdamW update's share;
+19. xlstm-350m trained at every width and all 24 layers through the
+   training CLI (``train_xlstm``, 8 x 256 tokens, int8 moments): a crash
+   at step 4 without a checkpoint (exit 137), a ``--resume`` run to step 6
+   whose checkpoint equals bit for bit the state of a straight in-process
+   ``train_loop``, step ms and checkpoint bytes.  No kernel is launched on a training path (exact
+   mode): each kernel's count is read there and is 0.
 
 Each phase's seconds are printed.
 
@@ -161,7 +177,8 @@ The last two lines of stdout are ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``.  ``--phases paged_attn,act_pool,sc_mac,
 odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
 serve_hybrid,mla_card,serve_mla,xlstm_card,serve_xlstm,serve_nemotron,
-musicgen_card,vlm_card,serve_musicgen,serve_vlm`` (any subset) runs only those
+musicgen_card,vlm_card,serve_musicgen,serve_vlm,train_card,train_phi4,
+train_xlstm`` (any subset) runs only those
 checks, for a focused call, and prints no kernels
 line.
 """
@@ -3236,11 +3253,348 @@ def serve_vlm():
             "serve_vlm_recompute": rec["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: training on one device
+# ---------------------------------------------------------------------------
+
+# train_card bounds, card (TF32 off) against the CPU in float32, one train
+# step: |loss| difference, grad_norm's relative difference, and the worst
+# leaf's normwise relative gradient difference max|g_card - g_cpu| /
+# max|g_cpu| (a leaf whose CPU gradient is all 0 is held absolutely).  Each
+# is at most 4x the worst measured over the 11 cases on an NVIDIA H100 80GB
+# HBM3 (700 W): loss 9.54e-7, one float32 ulp at phi4's 12.57 (the two
+# devices sum the log-sum-exp in other orders); grad_norm 1.89e-6 and the
+# gradient leaves 8.56e-6, both xlstm's (the chunkwise mLSTM's float32
+# exponential sums); the smallest move of the loss by shifted labels is
+# 2.4e-3, far past every bound.
+TRAIN_CARD_TOL = {"loss": 3.5e-6, "grad_norm": 7.5e-6, "grad_leaf": 3.4e-5}
+TRAIN_SMOKE_SHAPE = (2, 32)           # batch x sequence of the smoke configs
+PHI4_TRAIN_SHAPE = (4, 512)           # batch x sequence of train_phi4
+PHI4_TRAIN_STEPS = 6
+XLSTM_TRAIN_SHAPE = (8, 256)          # batch x sequence of train_xlstm
+
+
+def kernel_launch_counts():
+    """Every kernel's launch count, for a path that should launch none."""
+    from repro_torch.kernels.act_pool.act_pool import act_pool_cuda
+    from repro_torch.kernels.int8_mm.int8_mm import int8_mm_cuda
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.kernels.sc_mac import sc_mac_cuda
+    return {"paged_attn": paged_attention, "sc_mac": sc_mac_cuda, "int8_mm": int8_mm_cuda,
+            "act_pool": act_pool_cuda}
+
+
+@contextlib.contextmanager
+def no_kernel_launches(path, into):
+    """Sets every kernel's launch count to 0, runs the block, reads the counts
+    into ``into[kernel][path]`` and fails if any kernel launched (exact-mode
+    training reaches none of them)."""
+    counted = kernel_launch_counts()
+    for fn in counted.values():
+        fn.launches = 0
+    yield
+    torch.cuda.synchronize()
+    for name, fn in counted.items():
+        into.setdefault(name, {})[path] = fn.launches
+        if fn.launches:
+            raise AssertionError(f"{path}: {fn.launches} {name} launches in exact-mode training")
+
+
+def _train_once(cfg, params, batch, opt_cfg):
+    """One ``make_train_step`` call: (metrics as floats, the gradients the
+    update received).  The step hands its gradients to ``adamw_update_``
+    through the module; a pass-through keeps them."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.optim.adamw import adamw_init
+    seen = {}
+
+    def keep(fn):
+        def inner(grads, *a, **k):
+            seen["grads"] = grads
+            return fn(grads, *a, **k)
+        return inner
+
+    with patched(adamw_mod, "adamw_update_", keep):
+        _, _, m = make_train_step(cfg, opt_cfg, warmup=5)(params, adamw_init(params, opt_cfg),
+                                                         batch)
+    return {k: float(v) for k, v in m.items()}, seen["grads"]
+
+
+def train_card_vs_cpu(launches):
+    """One train step (loss, gradients, AdamW with float32 moments) of each of
+    the ten smoke configs in float32 and of phi4-mini-3.8b's widths over 2
+    layers (``remat="full"``, B = 1, S = 64) on the card and on the CPU,
+    from the same weights (seeded on the card, copied to the host) and the
+    same ``concrete_batch``: loss, ``grad_norm`` and every gradient leaf
+    within ``TRAIN_CARD_TOL``.  This covers the MoE backward through a
+    dropping dispatch (qwen3, deepseek), DeepSeek's MTP loss, Hymba's SSM
+    scan, both xLSTM cells, musicgen's codebooks and qwen2-vl's extras.
+    Labels shifted by one position move the card's loss past the bound."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import lm, registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves_with_path
+    opt_cfg = AdamWConfig(moment_dtype="float32")
+    cases = [(arch, registry.get_smoke(arch), TRAIN_SMOKE_SHAPE) for arch in registry.ARCH_IDS]
+    cases.append(("phi4-mini-3.8b x 2 layers", _two_layers("phi4-mini-3.8b"), (1, 64)))
+    worst = {"loss": 0.0, "grad_norm": 0.0, "grad_leaf": 0.0}
+    lines = {}
+    with no_kernel_launches("train_card", launches):
+        for name, cfg, (B, S) in cases:
+            t0 = time.perf_counter()
+            card, host = _float32_weights(cfg)
+            batch = concrete_batch(cfg, ShapeConfig("train", S, B, "train"), 0, 0)
+            shifted = dict(batch, labels=batch["labels"].roll(1, dims=-1))
+            with torch.no_grad():         # before the step updates the weights in place
+                wrong = float(lm.loss_fn(card, {k: v.cuda() for k, v in shifted.items()},
+                                         cfg)[0])
+            m_card, g_card = _train_once(cfg, card, {k: v.cuda() for k, v in batch.items()},
+                                         opt_cfg)
+            m_cpu, g_cpu = _train_once(cfg, host, batch, opt_cfg)
+            leaf_err, leaf_at = 0.0, None
+            for (path, _, gc), (_, _, gh) in zip(leaves_with_path(g_card),
+                                                 leaves_with_path(g_cpu)):
+                d = (gc.cpu().float() - gh.float()).abs().max().item()
+                scale = gh.float().abs().max().item()
+                e = d / scale if scale > 0 else d
+                if e > leaf_err:
+                    leaf_err, leaf_at = e, path
+            errs = {"loss": abs(m_card["loss"] - m_cpu["loss"]),
+                    "grad_norm": abs(m_card["grad_norm"] - m_cpu["grad_norm"])
+                    / m_cpu["grad_norm"], "grad_leaf": leaf_err}
+            line = {"loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+                    "grad_norm_cpu": m_cpu["grad_norm"],
+                    **{f"{k}_err": v for k, v in errs.items()}, "worst_leaf": leaf_at,
+                    "shifted_labels_loss_move": abs(wrong - m_card["loss"]),
+                    "s": time.perf_counter() - t0}
+            lines[name] = line
+            for k, v in errs.items():
+                worst[k] = max(worst[k], v)
+                if v > TRAIN_CARD_TOL[k]:
+                    raise AssertionError(f"train_card {name}: {k} error {v:.3e} > "
+                                         f"{TRAIN_CARD_TOL[k]} ({line})")
+            if line["shifted_labels_loss_move"] <= TRAIN_CARD_TOL["loss"]:
+                raise AssertionError(f"train_card {name}: shifted labels move the loss by "
+                                     f"{line['shifted_labels_loss_move']:.3e} only")
+            del card, host
+            free_device_memory()
+    log("train card vs cpu:", json.dumps({"cases": lines, "worst": worst,
+                                          "bounds": TRAIN_CARD_TOL}))
+    return worst
+
+
+def _profile_train_step(step, params, opt, batch):
+    """One train step under the profiler: wall ms, device busy ms and share,
+    device operations, the top device kernels and the AdamW update's share
+    of the device time (a ``record_function`` range around it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw as adamw_mod
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    def op_dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    with ranged(adamw_mod, "adamw_update_"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(dev_us(e) for e in kernels)
+    if busy_us <= 0:
+        raise AssertionError("train profile: the profiler recorded no device time")
+    adam_us = sum(op_dev_us(e) for e in events
+                  if e.key == "adamw_update_" and e.device_type == DeviceType.CPU)
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"wall_ms_profiled": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_ops": sum(e.count for e in kernels),
+            "adamw_update_device_ms": adam_us / 1e3, "adamw_update_share": adam_us / busy_us,
+            "top_device_ms": {e.key[:60]: dev_us(e) / 1e3 for e in top}}
+
+
+def train_phi4(launches):
+    """phi4-mini-3.8b at every width and all 32 layers (4.451 B parameters,
+    random bf16 weights from a seeded generator, ``remat="full"``) trained
+    for ``PHI4_TRAIN_STEPS`` steps of the port's train step on batches of 4 x
+    512 from ``concrete_batch``, once with float32 and once with int8 AdamW
+    moments (no ``train_loop``: its last-step save would write ≈ 53 GB).
+    Checks: the step-0 loss within 0.5 of ln V + 1/2 (the random fan-in
+    head over unit-RMS inputs gives logits of unit variance, whose
+    log-sum-exp is ln V + 1/2 on average: ln V alone is 0.5 off by
+    construction), finite grad norms, moved parameters.  Reports step ms (median of steps 2-6), tokens/s, the share
+    of the card's bf16 peak (``lm.model_flops`` over the step time), peak
+    device memory, the loss curve, and a profile of one more step with
+    float32 moments."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm, registry
+    from repro_torch.nn.module import count_params, materialize
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    cfg = registry.get_config("phi4-mini-3.8b")
+    B, S = PHI4_TRAIN_SHAPE
+    shape = ShapeConfig("train", S, B, "train")
+    n_params = count_params(lm.param_spec(cfg))
+    out = {}
+    for moments in ("float32", "int8"):
+        with no_kernel_launches(f"train_phi4_{moments}", launches):
+            t0 = time.perf_counter()
+            params = materialize(lm.param_spec(cfg),
+                                 torch.Generator(device="cuda").manual_seed(0), "cuda")
+            opt_cfg = AdamWConfig(moment_dtype=moments)
+            opt = adamw_init(params, opt_cfg)
+            step = make_train_step(cfg, opt_cfg, warmup=5)
+            probe = params["segments"][0]["mlp"]["w_up"][0, :4, :64].clone()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            losses, norms, times = [], [], []
+            for i in range(PHI4_TRAIN_STEPS):
+                batch = concrete_batch(cfg, shape, 0, i, device="cuda")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                times.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated()
+            prof = (_profile_train_step(step, params, opt,
+                                        concrete_batch(cfg, shape, 0, PHI4_TRAIN_STEPS,
+                                                       device="cuda"))
+                    if moments == "float32" else None)
+            moved = (params["segments"][0]["mlp"]["w_up"][0, :4, :64] - probe).abs().max().item()
+            del params, opt
+            free_device_memory()
+        step_s = float(np.median(times[1:]))
+        if prof is not None:      # the profiled step is slower: the profiler's host cost
+            prof["device_busy_share_unprofiled"] = prof["device_busy_ms"] / (step_s * 1e3)
+        line = {"moments": moments, "params": n_params, "batch": B, "seq": S,
+                "setup_s": setup_s, "step_ms": step_s * 1e3,
+                "step_ms_each": [t * 1e3 for t in times], "tokens_per_s": B * S / step_s,
+                "bf16_peak_share": lm.model_flops(cfg, B * S) / step_s / BF16_FLOPS,
+                "model_tflop_per_step": lm.model_flops(cfg, B * S) / 1e12,
+                "peak_gb": peak / 1e9, "losses": losses, "grad_norms": norms,
+                "param_moved": moved, "ln_vocab": math.log(cfg.vocab), "profile": prof}
+        log(f"train_phi4 ({moments} moments):", json.dumps(line))
+        if abs(losses[0] - (math.log(cfg.vocab) + 0.5)) > 0.5:
+            raise AssertionError(f"train_phi4: step-0 loss {losses[0]:.4f} is not within 0.5 "
+                                 f"of ln V + 1/2 = {math.log(cfg.vocab) + 0.5:.4f}")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"train_phi4: non-finite loss or grad norm {losses} {norms}")
+        if not moved > 0:
+            raise AssertionError("train_phi4: the parameters did not move")
+        out[moments] = line
+    return out
+
+
+def _ckpt_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def train_xlstm(launches):
+    """xlstm-350m at every width and all 24 layers (random bf16 weights,
+    int8 moments) through the training CLI, ``python -m
+    repro_torch.launch.train``, on batches of 8 x 256: ``--steps 6
+    --save-every 2 --simulate-crash-at 4`` must exit 137 with the latest
+    checkpoint at step 4; ``--resume`` must exit 0, print "resumed from step
+    4" and save step 6.  That checkpoint (params, AdamW moments and step,
+    data step) must equal bit for bit the final state of a straight
+    in-process ``train_loop`` of 6 steps, which runs beside the crash run.
+    Kernel launches are counted on that in-process run (``train_xlstm_loop``):
+    the CLI's processes run the same code but count in their own memory.
+    Reports the resumed run's step 5 (the CLI logs its last step; step 4
+    carries the process's warm-up), each run's seconds and checkpoint bytes;
+    the checkpoint directories are deleted after."""
+    import re
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves_with_path
+    B, S = XLSTM_TRAIN_SHAPE
+    root = os.path.join(HERE, "build", "train_xlstm")
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir = os.path.join(root, "cli")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "xlstm-350m",
+            "--steps", "6", "--batch", str(B), "--seq", str(S), "--save-every", "2",
+            "--int8-moments", "--ckpt-dir", run_dir]
+
+    def start(extra):
+        return subprocess.Popen(base + extra, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+    def finish(proc, t):
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        found = {int(s): (float(l), float(ms)) for s, l, ms in re.findall(
+            r"\[train\] step\s+(\d+)\s+loss (\S+)\s+(\d+) ms", out)}
+        return proc.returncode, out, err, found, time.perf_counter() - t
+
+    try:
+        # the straight in-process run overlaps the crash run: both are
+        # host-bound and leave the card mostly idle; the resumed run, whose
+        # step 5 gives the step time, runs alone
+        crash = start(["--simulate-crash-at", "4"])
+        with no_kernel_launches("train_xlstm_loop", launches):
+            t = time.perf_counter()
+            straight, losses = train_loop(
+                registry.get_config("xlstm-350m"), steps=6, batch=B, seq=S,
+                ckpt_dir=os.path.join(root, "straight"), save_every=6,
+                opt_cfg=AdamWConfig(moment_dtype="int8"), device="cuda")
+            straight_s = time.perf_counter() - t
+        rc, out, err, _, crash_s = finish(*crash)
+        if rc != 137 or ckpt.latest_step(run_dir) != 4:
+            raise AssertionError(f"train_xlstm crash run: rc {rc}, latest step "
+                                 f"{ckpt.latest_step(run_dir)}\n{out}\n{err[-3000:]}")
+        ckpt_bytes = _ckpt_bytes(os.path.join(run_dir, "step_000000004"))
+        rc, out, err, resumed_steps, resume_s = finish(*start(["--resume"]))
+        if (rc != 0 or "resumed from step 4" not in out or ckpt.latest_step(run_dir) != 6
+                or 5 not in resumed_steps):
+            raise AssertionError(f"train_xlstm resume: rc {rc}, latest step "
+                                 f"{ckpt.latest_step(run_dir)}\n{out}\n{err[-3000:]}")
+        resumed, _ = ckpt.restore(run_dir, 6, straight, verify=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    parted = {path: (a.float() - b.float()).abs().max().item()
+              for (path, _, a), (_, _, b) in zip(leaves_with_path(resumed),
+                                                 leaves_with_path(straight))
+              if not torch.equal(a, b)}
+    line = {"batch": B, "seq": S, "crash_run_s": crash_s, "resume_run_s": resume_s,
+            "straight_in_process_s": straight_s, "step_ms": resumed_steps[5][1],
+            "losses_straight": losses, "loss_resumed_5": resumed_steps[5][0],
+            "leaves": sum(1 for _ in leaves_with_path(straight)), "leaves_parted": parted,
+            "checkpoint_bytes": ckpt_bytes}
+    log("train_xlstm:", json.dumps(line))
+    if parted:
+        raise AssertionError(f"train_xlstm: the resumed run's step 6 parts from the "
+                             f"straight run's in {len(parted)} leaves: {parted}")
+    return line
+
+
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
             "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
             "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron",
-            "musicgen_card", "vlm_card", "serve_musicgen", "serve_vlm")
+            "musicgen_card", "vlm_card", "serve_musicgen", "serve_vlm", "train_card",
+            "train_phi4", "train_xlstm")
 
 
 def run_picked(picked, name, smi):
@@ -3292,7 +3646,10 @@ def run_picked(picked, name, smi):
                        ("serve_xlstm", lambda: serve_xlstm(*load_xlstm())),
                        ("serve_nemotron", lambda: serve_nemotron(*load_nemotron())),
                        ("musicgen_card", musicgen_card_vs_cpu), ("vlm_card", vlm_card_vs_cpu),
-                       ("serve_musicgen", serve_musicgen), ("serve_vlm", serve_vlm)):
+                       ("serve_musicgen", serve_musicgen), ("serve_vlm", serve_vlm),
+                       ("train_card", lambda: train_card_vs_cpu({})),
+                       ("train_phi4", lambda: train_phi4({})),
+                       ("train_xlstm", lambda: train_xlstm({}))):
         if phase in picked:
             t = time.perf_counter()
             run()
@@ -3427,8 +3784,18 @@ def main(argv=None):
     paged_launches.update(serve_vlm())
     free_device_memory()
     lap("serve_vlm")
+    train_launches = {}
+    train_card_vs_cpu(train_launches)
+    free_device_memory()
+    lap("train_card")
+    train_phi4(train_launches)
+    lap("train_phi4")
+    train_xlstm(train_launches)
+    free_device_memory()
+    lap("train_xlstm")
+    paged_launches.update(train_launches["paged_attn"])
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
-                   "serve_sc": odin["sc"]["sc_mac_launches"]}
+                   "serve_sc": odin["sc"]["sc_mac_launches"], **train_launches["sc_mac"]}
     lap("cnn experiment")
     int8_launches = kernel_bench()
     lap("kernel bench")
@@ -3467,7 +3834,9 @@ def main(argv=None):
         "name": "int8_mm", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/int8_mm/csrc/int8_mm.cu",
         "replaces": "src/repro/kernels/int8_mm/int8_mm.py:32",
-        "launches": int8_launches, "shape": int8_rep["case"],
+        "launches": int8_launches,
+        "launches_by_path": {"kernel_bench": int8_launches, **train_launches["int8_mm"]},
+        "shape": int8_rep["case"],
         "max_abs_err": max(x["max_abs_err"] for x in int8_lines.values()),
         "ms": int8_rep["ms"], "plain_ms": int8_rep["plain_ms"],
         "bound_ms": int8_rep["bound_ms"], "bound_by": int8_rep["bound_by"],
@@ -3477,7 +3846,9 @@ def main(argv=None):
         "name": "act_pool", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/act_pool/csrc/act_pool.cu",
         "replaces": "src/repro/kernels/act_pool/act_pool.py:36",
-        "launches": act_launches, "shape": act_rep["case"],
+        "launches": act_launches,
+        "launches_by_path": {"act_pool_entry": act_launches, **train_launches["act_pool"]},
+        "shape": act_rep["case"],
         "max_abs_err": act_rep["max_abs_err"],
         "ms": act_rep["ms"], "plain_ms": act_rep["plain_ms"],
         "bound_ms": act_rep["bound_ms"], "bound_by": act_rep["bound_by"],

@@ -16,6 +16,13 @@ numpy's bfloat16 leaves are ``ml_dtypes.bfloat16``, which
 and are viewed back as ``torch.bfloat16``, bit for bit (the same trick
 ``ckpt.py`` uses to store them).
 
+The same call carries a training state across: the JAX ``train_loop``'s
+``{"params", "opt": {"mu", "nu": {"q"[, "s"]}, "step"}, "data_step"}`` with
+its int8 moments, float32 scales and int32 counters keeps every leaf's
+dtype (``dtype`` casts floating leaves only).  ``tree_to_numpy(tree)`` goes
+the other way: a port tree to numpy leaves on the host, bfloat16 as
+``ml_dtypes.bfloat16`` (the JAX package's numpy bfloat16), bit for bit.
+
 ``luts_from_numpy(lut_a, lut_w, selects, device)`` carries the JAX package's
 SC tables (``core/odin_linear.py get_luts``, uint32 words) across as the
 int32 tensors with the same bit patterns, which is how the port holds
@@ -28,7 +35,7 @@ import torch
 
 from repro_torch.tree import tree_map
 
-__all__ = ["params_from_numpy", "luts_from_numpy"]
+__all__ = ["params_from_numpy", "tree_to_numpy", "luts_from_numpy"]
 
 
 def _leaf(a, device, dtype):
@@ -48,6 +55,20 @@ def params_from_numpy(tree, device, dtype=None):
     """numpy-leaf param tree → tensor tree on ``device``.  ``dtype`` (e.g.
     ``torch.float32``) casts every floating leaf; integer leaves keep theirs."""
     return tree_map(lambda a: _leaf(a, device, dtype), tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                     # numpy's bfloat16, as JAX's arrays use it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tree_to_numpy(tree):
+    """Tensor tree → numpy-leaf tree on the host (what ``jax.numpy.asarray``
+    takes), every leaf bit for bit."""
+    return tree_map(_to_numpy, tree)
 
 
 def luts_from_numpy(lut_a, lut_w, selects, device="cpu"):

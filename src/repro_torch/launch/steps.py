@@ -1,7 +1,9 @@
-"""Serving steps: the static loop and continuous batching.
+"""Step functions: the train step, the static loop and continuous batching.
 
-The serving subset of the JAX package's ``launch/steps.py``: the static
-loop's prefill and decode over dense caches, and the continuous-batching
+The single-device subset of the JAX package's ``launch/steps.py``: the
+train step (``make_train_step``: gradient accumulation over microbatches,
+AdamW, the warmup-cosine ``lr_schedule``), the static loop's prefill and
+decode over dense caches, and the continuous-batching
 steps over the paged KV pool and the dense per-slot caches — slot prefill,
 activity-masked decode, the guarded decode with its NaN verdict, the fused
 mixed prefill+decode tile, the decode horizon and n-gram self-speculative
@@ -20,6 +22,7 @@ sampled streams are deterministic for a seed but differ from
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -27,9 +30,14 @@ import torch
 from repro_torch.configs.base import BlockConfig, ModelConfig
 from repro_torch.models import lm
 from repro_torch.nn.attention import POOL_LEAVES, init_paged_cache
-from repro_torch.tree import leaves_with_path, map_with_name
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.tree import leaves_with_path, map_with_name, tree_map
 
 __all__ = [
+    "lr_schedule",
+    "loss_and_grads",
+    "make_train_step",
     "make_prefill_step",
     "make_decode_step",
     "pageable_block",
@@ -50,6 +58,82 @@ def pageable_block(b: BlockConfig) -> bool:
     (non-windowed GQA)."""
     return (b.kind in ("dense", "moe", "hymba") and b.attn is not None
             and b.attn.kind == "gqa" and b.attn.window == 0)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def lr_schedule(step: torch.Tensor, base: float = 3e-4, warmup: int = 100,
+                total: int = 10_000) -> torch.Tensor:
+    """Linear warmup to ``base`` (step 0 trains at base/warmup, not 0), then a
+    cosine down to a tenth of it at ``total``; float32 on ``step``'s device."""
+    s = step.to(torch.float32)
+    warm = (s + 1.0) / max(warmup, 1)
+    prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return base * torch.where(s < warmup, warm, 0.1 + 0.9 * cos)
+
+
+def loss_and_grads(params, batch, cfg: ModelConfig):
+    """(loss, metrics, grads) of ``lm.loss_fn`` at ``params``: ``grads`` has
+    the params' tree and dtypes, zeros for a leaf the loss does not read
+    (DeepSeek's ``route_bias``).  The params are not modified and get no
+    ``.grad``."""
+    leaves = [t for _, _, t in leaves_with_path(params)]
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    it = iter(live)
+    loss, metrics = lm.loss_fn(tree_map(lambda _: next(it), params), batch, cfg)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(t) for g, t in zip(grads, leaves))
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        tree_map(lambda _: next(it), params)
+
+
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    """Σ g² in float32, blocks of whole trailing-axis rows at a time (the
+    AdamW update's blocks), so no float32 copy of a whole bf16 leaf is
+    made."""
+    rows = g.reshape(-1, g.shape[-1] if g.dim() else 1)
+    step = max(1, adamw.BLOCK_ELEMS // rows.shape[1])
+    return sum(torch.sum(torch.square(rows[i:i + step].to(torch.float32)))
+               for i in range(0, rows.shape[0], step))
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    accum: int = 1, base_lr: float = 3e-4, grad_shardings=None,
+                    accum_dtype=torch.float32, warmup: int = 100) -> Callable:
+    """(params, opt_state, batch) → (params, opt_state, metrics).
+
+    ``batch`` leaves are [B, ...] when ``accum == 1``, else [accum,
+    B/accum, ...]: a Python loop over the microbatches sums their gradients
+    in ``accum_dtype`` and takes the mean.  The update is AdamW in place
+    (``adamw_update_``), so the returned params and state are the ones
+    passed in, updated.  Metrics: ``loss`` (the microbatches' mean of the
+    total loss), ``grad_norm`` (the float32 sum of squares over every leaf,
+    square-rooted) and ``lr``.  ``grad_shardings`` is accepted for the
+    reference's signature; on one device there is nothing to pin."""
+    del grad_shardings
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, _, grads = loss_and_grads(params, batch, cfg)
+        else:
+            grads, loss = None, 0.0
+            for j in range(accum):
+                l, _, g = loss_and_grads(params, {k: v[j] for k, v in batch.items()}, cfg)
+                g = tree_map(lambda b: b.to(accum_dtype), g)
+                grads = g if grads is None else tree_map(
+                    lambda a, b: (a + b).to(accum_dtype), grads, g)
+                loss = loss + l
+            grads = tree_map(lambda g: g.to(torch.float32) / accum, grads)
+            loss = loss / accum
+        lr = lr_schedule(opt_state["step"], base_lr, warmup=warmup)
+        gnorm = torch.sqrt(sum(_sum_squares(g) for _, _, g in leaves_with_path(grads)))
+        params, opt_state = adamw.adamw_update_(grads, params, opt_state, lr, opt_cfg)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------

@@ -5,17 +5,23 @@ vision stub (precomputed patch embeddings over the leading positions, and
 M-RoPE's (t, h, w) position ids).
 
 Params for each segment are stacked ``[n_layers, ...]`` as in the JAX
-package; a Python loop over the layers takes the place of its ``lax.scan``
-(no rematerialisation: the port only runs inference).  DeepSeek's
-multi-token-prediction subtree (``mtp``) is built and carried as the
-reference builds it; only its training loss reads it, and serving never
-does.
+package; a Python loop over the layers takes the place of its ``lax.scan``.
+Each segment's leaves are split into their per-layer slices by one
+``unbind`` a leaf, so that the backward stacks each leaf's gradient once
+(indexing ``a[layer]`` would send a zero-padded ``[L, ...]`` gradient back
+from every layer).  When autograd records, ``cfg.remat`` rematerialises
+each layer as the reference's ``jax.checkpoint`` does: ``full`` keeps only
+the layer's inputs, ``dots`` also keeps its matmul outputs.  ``loss_fn`` is
+the training loss, with DeepSeek's multi-token-prediction (``mtp``) term;
+serving never reads the ``mtp`` subtree.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.odin_linear import OdinConfig
@@ -23,9 +29,9 @@ from repro_torch.nn.attention import POOL_LEAVES
 from repro_torch.nn.blocks import block_apply, block_cache, block_spec
 from repro_torch.nn.layers import embed, embed_spec, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec, count_params
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, tree_map
 
-__all__ = ["param_spec", "forward", "init_caches", "kv_dtype", "model_flops"]
+__all__ = ["param_spec", "forward", "init_caches", "kv_dtype", "loss_fn", "model_flops"]
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
               "float16": torch.float16, "int8": torch.int8}
@@ -89,6 +95,54 @@ def _restack(stacked, per_layer, name: str = ""):
     return torch.stack(per_layer)
 
 
+# matmuls with no batch dimension: the products that ``remat="dots"``
+# saves, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematerialised(layer, remat: str):
+    """``layer`` under ``cfg.remat``: ``none`` as it is, ``full`` under
+    ``torch.utils.checkpoint`` (only its inputs saved), ``dots`` under
+    selective checkpointing that also saves the matmul outputs."""
+    if remat == "none":
+        return layer
+    # the forward draws no random numbers: no RNG state to stash and restore
+    if remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint, layer, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "dots":
+        contexts = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                     _save_dots)
+        return functools.partial(torch_checkpoint.checkpoint, layer, use_reentrant=False,
+                                 preserve_rng_state=False, context_fn=contexts)
+    raise ValueError(f"unknown remat {remat!r}")
+
+
+def _records(seg, x) -> bool:
+    """Whether autograd records a segment's forward."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(a.requires_grad for _, _, a in leaves_with_path(seg)))
+
+
+class _Slices:
+    """A leaf's per-layer slices (a tree leaf, not a tree node)."""
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts
+
+
+def _layer_slices(seg, n: int):
+    """The per-layer slices of a stacked segment: one ``unbind`` a leaf."""
+    cols = tree_map(lambda a: _Slices(a.unbind(0)), seg)
+    return [tree_map(lambda c: c.parts[i], cols) for i in range(n)]
+
+
 def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
             pos3d=None, start_pos=None, moe_no_drop: bool = False, tables=None,
             spec_decode: bool = False, q_lens=None, q_decode=None):
@@ -134,14 +188,19 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
         seg = params["segments"][i]
         c = caches[i] if caches is not None else None
         per_layer = []
-        for layer in range(bcfg.n_layers):
-            p_l = tree_map(lambda a: a[layer], seg)
-            c_l = None if c is None else tree_map(lambda a: a[layer], c)
-            x, c2 = block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
-                                odin=odin, norm_eps=cfg.norm_eps,
-                                moe_no_drop=moe_no_drop, tables=tables,
-                                spec_decode=spec_decode, q_lens=q_lens,
-                                q_decode=q_decode, pos3d=pos3d)
+
+        def layer(p_l, x, c_l, bcfg=bcfg):
+            return block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
+                               odin=odin, norm_eps=cfg.norm_eps,
+                               moe_no_drop=moe_no_drop, tables=tables,
+                               spec_decode=spec_decode, q_lens=q_lens,
+                               q_decode=q_decode, pos3d=pos3d)
+
+        if _records(seg, x):
+            layer = _rematerialised(layer, cfg.remat)
+        for l, p_l in enumerate(_layer_slices(seg, bcfg.n_layers)):
+            c_l = None if c is None else tree_map(lambda a: a[l], c)
+            x, c2 = layer(p_l, x, c_l)
             per_layer.append(c2)
         new_caches.append(None if c is None else _restack(c, per_layer))
 
@@ -172,6 +231,55 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         one = block_cache(b, cfg.d_model, batch, max_len, dtype, device, attn=sub)
         out.append(tree_map(lambda a: a.expand(b.n_layers, *a.shape).clone(), one))
     return out
+
+
+def _xent(logits, labels, vocab: int):
+    """Per-token cross-entropy in float32: ``logsumexp - logit[label]``, the
+    max subtracted first and held out of the gradient.  The label's logit
+    is picked by ``gather`` (the reference's masked sum adds one nonzero
+    term to zeros, so the value is the same) and no ``[..., V]`` mask is
+    built."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    picked = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    return lse - picked
+
+
+def loss_fn(params, batch: Dict, cfg: ModelConfig):
+    """Training loss of a batch: tokens ``[B, S]`` (``[B, K, S]``), labels of
+    the same shape, and the vision stub's ``patch_embeds`` and ``pos3d``
+    where the batch has them.  Returns (loss, metrics).  MoE blocks route
+    with capped capacity (dropping), as the reference's training does.
+    DeepSeek's MTP head predicts token t+2 from h_t and the embedding of
+    t+1 through one more block of the first segment's kind; its loss enters
+    at weight 0.1."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    logits, _, h = forward(params, tokens, cfg, patch_embeds=batch.get("patch_embeds"),
+                           pos3d=batch.get("pos3d"))
+    if cfg.n_codebooks > 1:
+        loss = _xent(logits, labels.transpose(1, 2), cfg.vocab).mean()
+    else:
+        loss = _xent(logits, labels, cfg.vocab).mean()
+    metrics = {"loss": loss}
+    if cfg.mtp:
+        x = embed(tokens, params["embed"])
+        hm = rmsnorm(h[:, :-1], params["mtp"]["norm"], cfg.norm_eps)
+        comb = torch.cat([hm, x[:, 1:]], dim=-1)
+        z = torch.matmul(comb, params["mtp"]["proj"].to(comb.dtype))
+        B, S1 = z.shape[0], z.shape[1]
+        pos = (torch.arange(S1, dtype=torch.int32, device=z.device)[None, :]
+               + torch.zeros((B, 1), dtype=torch.int32, device=z.device))
+        z, _ = block_apply(params["mtp"]["block"], z, cfg.blocks[0], positions=pos,
+                           odin=_odin(cfg), norm_eps=cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        mtp_logits = torch.matmul(z, head.to(z.dtype))[:, :-1]         # predicts t+2
+        mtp_loss = _xent(mtp_logits, labels[:, 2:], cfg.vocab).mean()
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.1 * mtp_loss
+    metrics["loss_total"] = loss
+    return loss, metrics
 
 
 def model_flops(cfg: ModelConfig, n_tokens: int, train: bool = True) -> float:

@@ -80,7 +80,8 @@ Phases, each fatal on failure:
    run's streams (partings only at reported near ties);
 8. Hymba: hymba-1.5b's widths over 2 of its layers (one global, one
    window) on the card equal to the CPU plain path (streams and logits,
-   float32); then hymba-1.5b at every width and all 32 layers (random bf16
+   float32); then hymba-1.5b at every width over 11 of its 32 layers (all
+   three global layers, 4 window layers in each window segment; random bf16
    weights): 8 prompts of 1536 tokens past the 1024-token window, 64 greedy
    tokens, ``paged_attention`` launched once a decode-carrying forward by
    each of the three global layers; its first 2 prompts held against
@@ -164,8 +165,21 @@ Phases, each fatal on failure:
    training CLI (``train_xlstm``, 8 x 256 tokens, int8 moments): a crash
    at step 4 without a checkpoint (exit 137), a ``--resume`` run to step 6
    whose checkpoint equals bit for bit the state of a straight in-process
-   ``train_loop``, step ms and checkpoint bytes.  No kernel is launched on a training path (exact
-   mode): each kernel's count is read there and is 0.
+   ``train_loop``, step ms and checkpoint bytes;
+20. data parallelism (``train_dp``): phi4-mini-3.8b at every width over 4 of
+   its 32 layers trained by two ranks on the one card over a gloo group of
+   CUDA tensors (bf16 weights, float32 moments, 4 x 512 tokens a step, 2 x
+   512 a rank), 3 steps with the int8-compressed gradient all-reduce and 3
+   with the float one: step and all-reduce ms, wire bytes, the loss curves,
+   peak memory a rank, rank 0's first compressed step held against
+   ``compressed_psum_plain`` of both ranks' gradients on the card;
+21. the dry-run (``dryrun``): phi4-mini-3.8b's ``train_4k`` cell at full
+   size on the (16, 16) fake mesh, its record printed; the counter's FLOPs,
+   bytes and op count of one sharded train step (phi4's widths over 2
+   layers, a 1 x 1 mesh) equal on the card and traced on meta tensors, the
+   card's step ms beside its roofline bound.  No kernel is launched on a
+   training, data-parallel or dry-run path (exact mode): each kernel's
+   count is read there and is 0.
 
 Each phase's seconds are printed.
 
@@ -178,7 +192,7 @@ The last two lines of stdout are ``{"kernels": [...]}`` and
 odin_linear,serve_sc,serve_spec,frontdoor,serve_moe,serve_dense,hymba_card,
 serve_hybrid,mla_card,serve_mla,xlstm_card,serve_xlstm,serve_nemotron,
 musicgen_card,vlm_card,serve_musicgen,serve_vlm,train_card,train_phi4,
-train_xlstm`` (any subset) runs only those
+train_xlstm,train_dp,dryrun`` (any subset) runs only those
 checks, for a focused call, and prints no kernels
 line.
 """
@@ -2478,20 +2492,28 @@ def hymba_card_vs_cpu():
 
 
 def load_hymba():
-    """hymba-1.5b at every published width and all 32 layers, random bf16
-    weights (the SSM's A_log, D, dt_bias and the fusion's mix_beta float32)
-    from a seeded generator on the card, and eight 1536-token prompts."""
+    """hymba-1.5b at every published width over 11 of its 32 layers — its
+    three global layers (first, middle, last) and 4 window layers in each of
+    the two window segments, so the paged_attn layers and the ring wrap are
+    all there — random bf16 weights (the SSM's A_log, D, dt_bias and the
+    fusion's mix_beta float32) from a seeded generator on the card, and
+    eight 1536-token prompts."""
+    import dataclasses
+
     from repro_torch.models import lm, registry
     from repro_torch.nn.module import count_params, materialize
 
-    cfg = registry.get_config(HYMBA_ARCH)
+    full = registry.get_config(HYMBA_ARCH)
+    cfg = full.with_overrides(blocks=tuple(
+        dataclasses.replace(b, n_layers=HYMBA_WINDOW_LAYERS) if b.attn.window else b
+        for b in full.blocks))
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = materialize(lm.param_spec(cfg), gen, "cuda")
     torch.cuda.synchronize()
     n = count_params(lm.param_spec(cfg))
-    log(f"{HYMBA_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.2f} GB in bf16), all "
-        f"{cfg.n_layers} layers, materialized on the card in "
+    log(f"{HYMBA_ARCH}: {n / 1e9:.3f} B params ({2 * n / 1e9:.2f} GB in bf16), "
+        f"{cfg.n_layers} of its {full.n_layers} layers, materialized on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = list(rng.integers(0, cfg.vocab, size=(HYMBA_PROMPTS, 1536), dtype=np.int32))
@@ -2499,6 +2521,8 @@ def load_hymba():
 
 
 HYMBA_PROMPTS, HYMBA_COMPARED = 8, 2
+# window layers kept in each of hymba's two window segments (of 14 and 15)
+HYMBA_WINDOW_LAYERS = 4
 
 
 def ssm_prefill_cost(cfg, params):
@@ -2538,8 +2562,8 @@ def ssm_prefill_cost(cfg, params):
 
 
 def serve_hybrid(cfg, params, prompts):
-    """hymba-1.5b served at full width and full depth through the port's
-    engine on the card: 8 prompts of 1536 tokens (past the 1024-token window,
+    """hymba-1.5b served at full width over 11 of its 32 layers
+    (``load_hymba``) through the port's engine on the card: 8 prompts of 1536 tokens (past the 1024-token window,
     so the rings of 1024 + 256 rows wrap) with 64 greedy tokens, max_len 2048,
     block 16, chunk 256 (mixed dispatch and prefix sharing off by themselves).
     The three global layers run on the paged pool and launch
@@ -3589,12 +3613,313 @@ def train_xlstm(launches):
     return line
 
 
+# ---------------------------------------------------------------------------
+# distribution and analysis: the data-parallel step on two ranks, the dry-run
+# ---------------------------------------------------------------------------
+
+DP_LAYERS, DP_STEPS, DP_SHAPE = 4, 3, (4, 512)     # phi4 layers, steps a mode, global B x S
+DP_LR = 3e-4
+
+
+def _dp_cfg():
+    import dataclasses
+
+    from repro_torch.models import registry
+    cfg = registry.get_config("phi4-mini-3.8b")
+    return cfg.with_overrides(blocks=tuple(dataclasses.replace(b, n_layers=DP_LAYERS)
+                                           for b in cfg.blocks))
+
+
+def _dp_levels(got, want, smax, n_ranks):
+    """How many 8-bit levels of the reduced gradient's grid (``(1 - b1) ·
+    s_max / n`` in μ after one step) each element of μ moved, and the
+    largest residue off that grid relative to a level."""
+    level = torch.repeat_interleave(0.1 * smax.reshape(-1) / n_ranks, 256)[:want.numel()]
+    diff = (got.reshape(-1) - want.reshape(-1)).abs()
+    whole = torch.round(diff / torch.clamp_min(level, 1e-30))
+    off = ((diff - whole * level).abs() - 1e-6 * want.reshape(-1).abs()).clamp_min(0)
+    return whole, float((off / torch.clamp_min(level, 1e-30)).max())
+
+
+def _timed(into):
+    """Wraps ``torch.distributed.all_reduce``: appends the seconds of each
+    call, the card synchronized before and after, to ``into``."""
+    def wrap(fn):
+        def inner(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a, **k)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return inner
+    return wrap
+
+
+def _dp_rank(rank, port, out_path):
+    """One rank of ``train_dp``: a gloo group of two ranks on the one card,
+    the port's ``make_dp_train_step`` on this rank's rows, ``DP_STEPS``
+    steps with the compressed all-reduce and ``DP_STEPS`` without; rank 0
+    also holds the first compressed step's μ and params against
+    ``compressed_psum_plain`` of both ranks' gradients, which it computes
+    itself from the whole batch.  Each rank writes its results."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        _dp_rank_body(rank, out_path)
+    except BaseException:
+        import traceback
+        with open(f"{out_path}.err.{rank}", "w") as f:     # the parent prints it
+            f.write(traceback.format_exc() + f"\nmemory: {torch.cuda.memory_summary()}")
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_body(rank, out_path):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.launch.steps import loss_and_grads, make_dp_train_step
+    from repro_torch.nn.module import materialize
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.compress import compress_int8, compressed_psum_plain, draw_uniforms
+    from repro_torch.tree import leaves_with_path
+
+    cfg, n = _dp_cfg(), 2
+    B, S = DP_SHAPE
+    shape = ShapeConfig("train", S, B, "train")
+    rows = slice(rank * B // n, (rank + 1) * B // n)
+    mesh = make_mesh((n,), ("data",), "cuda")
+    opt_cfg = AdamWConfig(moment_dtype="float32")
+    launches = {}
+    out = {"rank": rank}
+    for compress in (True, False):
+        tag = "compressed" if compress else "float"
+        params = materialize(lm.param_spec(cfg), torch.Generator(device="cuda").manual_seed(0),
+                             "cuda")
+        opt = adamw_init(params, opt_cfg)
+        step = make_dp_train_step(cfg, mesh, opt_cfg, base_lr=DP_LR, compress=compress)
+        want = None
+        if compress and rank == 0:
+            # both ranks' gradients of step 0, computed here from the whole batch
+            b0 = concrete_batch(cfg, shape, 0, 0, device="cuda")
+            local = [loss_and_grads(params, {k: v[r * B // n:(r + 1) * B // n]
+                                             for k, v in b0.items()}, cfg)[2]
+                     for r in range(n)]
+            gen = torch.Generator(device="cuda").manual_seed((0 + 1) * 2**32)
+            want, smax = {}, {}
+            for (path, _, g0), (_, _, g1) in zip(leaves_with_path(local[0]),
+                                                  leaves_with_path(local[1])):
+                gs = [g.float().reshape(1, -1) for g in (g0, g1)]
+                u = draw_uniforms(gs[0].shape, gen, "cuda")
+                if path in ("['embed']", "['lm_head']"):   # drawn, not held: they
+                    continue                                  # would not fit
+                want[path] = compressed_psum_plain(gs, u).reshape(g0.shape) / n
+                smax[path] = torch.maximum(*(compress_int8(g, uniforms=u)[1] for g in gs))
+            p0 = {path: params_leaf.clone() for path, _, params_leaf
+                  in leaves_with_path(params) if path in want}
+            del local, gs
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, reduce_ms, reduce_s = [], [], [], []
+        with no_kernel_launches(f"train_dp_{tag}", launches), \
+                patched(torch.distributed, "all_reduce", _timed(reduce_s)):
+            for i in range(DP_STEPS):
+                reduce_s.clear()
+                b = concrete_batch(cfg, shape, 0, i, device="cuda")
+                gen = torch.Generator(device="cuda").manual_seed((0 + 1) * 2**32 + i)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, m = step(params, opt, {k: v[rows] for k, v in b.items()},
+                                      generator=gen)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(m["loss"]))
+                reduce_ms.append(sum(reduce_s) * 1e3)
+                if want is not None and i == 0:
+                    moved, total, worst_off, worst_p = 0, 0, 0.0, 0.0
+                    lr = DP_LR / 100          # lr_schedule(0) with the default warmup
+                    for path, _, mu in leaves_with_path(opt["mu"]):
+                        path = path[:-len("['q']")]
+                        if path not in want:
+                            continue
+                        whole, off = _dp_levels(mu, 0.1 * want[path], smax[path], n)
+                        if float(whole.max()) > n or off > 1e-3:
+                            raise AssertionError(f"train_dp: {path} μ off the level grid "
+                                                 f"({float(whole.max())} levels, {off})")
+                        moved += int((whole > 0).sum())
+                        total += whole.numel()
+                    for path, _, p in leaves_with_path(params):
+                        if path not in p0:
+                            continue
+                        d = (p.float() - p0[path].float()).abs()
+                        ulp = torch.abs(p0[path].float()) * 2.0 ** -7
+                        worst_p = max(worst_p, float((d - 2 * lr - ulp).max()))
+                    if moved > 1e-3 * total or worst_p > 0:
+                        raise AssertionError(f"train_dp: {moved} of {total} μ elements "
+                                             f"moved a level; params off by {worst_p}")
+                    out["plain_check"] = {"mu_elements": total, "moved_one_level": moved,
+                                          "params_within_2lr_plus_bf16_ulp": True}
+                    del want, smax, p0
+                    want = None
+        numel = sum(t.numel() for _, _, t in leaves_with_path(params))
+        nb = sum(-(-t.numel() // 256) for _, _, t in leaves_with_path(params))
+        # the compressed all-reduces carry int32 codes of whole blocks and a
+        # float32 scale a block; the float one the bf16 gradient
+        wire = 4 * 256 * nb + 4 * nb if compress else 2 * numel
+        out[tag] = {"losses": losses, "step_ms": step_ms, "reduce_ms": reduce_ms,
+                    "wire_bytes_a_rank": wire, "float32_gradient_bytes": 4 * numel,
+                    "params": numel, "blocks": nb,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    with open(f"{out_path}.{rank}", "w") as f:
+        json.dump(out, f)
+
+
+def train_dp(launches):
+    """phi4-mini-3.8b at every width over ``DP_LAYERS`` of its 32 layers
+    (bf16 weights, float32 AdamW moments) trained data-parallel by two
+    ranks on the one card over a gloo group of CUDA tensors (NCCL refuses
+    two ranks on one device), a global batch of 4 x 512 split 2 x 512 a
+    rank: ``DP_STEPS`` steps with the int8-compressed gradient all-reduce
+    and ``DP_STEPS`` with the float one.  Reports step ms and the
+    all-reduces' ms (host time, the card synchronized around each call:
+    gloo stages CUDA tensors through host memory), the wire bytes a rank (int32 codes + float32 scales against
+    float32 gradients), the loss curves, each rank's peak memory; rank 0's
+    first compressed step is held against ``compressed_psum_plain`` of both
+    ranks' gradients on the card, every leaf but the 200,064 x 3072
+    embedding and head, whose float32 yardsticks would not fit beside the
+    two ranks (μ on the 8-bit level grid, at most 1e-3 of it moved one
+    level; params within 2·lr + one bf16 ulp).  A rank that
+    fails fails the phase; nothing falls back to one rank."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dp.json")
+        t = time.perf_counter()
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+        try:
+            mp.start_processes(_dp_rank, args=(_free_port(), path), nprocs=2, join=True,
+                               start_method="spawn")
+        except Exception:
+            for rank in range(2):
+                if os.path.exists(f"{path}.err.{rank}"):
+                    with open(f"{path}.err.{rank}") as f:
+                        log(f"train_dp rank {rank} failed:\n{f.read()[-6000:]}")
+            raise
+        wall = time.perf_counter() - t
+        ranks = []
+        for rank in range(2):
+            with open(f"{path}.{rank}") as f:
+                ranks.append(json.load(f))
+    r = ranks[0]
+    for tag in ("compressed", "float"):
+        r[tag]["peak_gb_rank1"] = ranks[1][tag]["peak_gb"]
+        if ranks[1][tag]["losses"] != r[tag]["losses"]:
+            raise AssertionError(f"train_dp {tag}: the ranks' mean losses differ")
+        x = r[tag]
+        if not all(math.isfinite(v) for v in x["losses"]):
+            raise AssertionError(f"train_dp {tag}: non-finite loss {x['losses']}")
+    for name, by_path in r["launches"].items():
+        for p, v in by_path.items():
+            launches.setdefault(name, {})[p] = v
+    line = {"layers": DP_LAYERS, "ranks": 2, "global_batch": DP_SHAPE, "wall_s": wall,
+            **{k: r[k] for k in ("compressed", "float", "plain_check")},
+            "cli_one_nccl_rank": _dp_cli()}
+    for tag in ("compressed", "float"):
+        x = line[tag]
+        x["step_ms_median"] = float(np.median(x["step_ms"][1:]))
+        x["reduce_ms_median"] = float(np.median(x["reduce_ms"][1:]))
+    log("train_dp:", json.dumps(line))
+    return line
+
+
+def _dp_cli():
+    """The training CLI with ``--mesh 1 --grad-compress`` under ``torchrun``
+    on one NCCL rank: xlstm-350m at every width and all 24 layers, 3 steps
+    of 4 x 256 (phi4-mini's last-step checkpoint would write ≈ 44 GB), the
+    compressed all-reduce on the NCCL group; exit 0, finite losses, rank 0's
+    checkpoint at step 3 (the CLI logs steps 0 and 2)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-port", str(_free_port()), "-m", "repro_torch.launch.train",
+               "--arch", "xlstm-350m", "--mesh", "1", "--grad-compress", "--steps", "3",
+               "--batch", "4", "--seq", "256", "--ckpt-dir", d]
+        t = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+        wall = time.perf_counter() - t
+        if r.returncode != 0:
+            raise AssertionError(f"train CLI --mesh 1 --grad-compress: exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        losses = [float(x.split("loss")[1].split()[0]) for x in r.stdout.splitlines()
+                  if x.startswith("[train] step")]
+        saved = sorted(os.listdir(d))
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses) or saved != [
+            "step_000000003"]:
+        raise AssertionError(f"train CLI --mesh 1: losses {losses}, checkpoints {saved}")
+    return {"arch": "xlstm-350m", "backend": "nccl", "steps": 3, "losses": losses,
+            "wall_s": wall}
+
+
+def dryrun_phase(launches):
+    """The dry-run: phi4-mini-3.8b's ``train_4k`` cell at full size on the
+    (16, 16) fake mesh, its record printed; then the counter held to the
+    card: one sharded train step at phi4's widths over 2 layers on a 1 x 1
+    mesh (4 x 512 tokens, int8 moments), run on the card and traced on meta
+    tensors, must count the same FLOPs, bytes and ops; the card's step ms
+    is printed beside its roofline bound."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo import roofline_terms
+    from repro_torch.launch.mesh import make_mesh
+
+    with no_kernel_launches("dryrun", launches):
+        rec = dryrun.run_cell("phi4-mini-3.8b", "train_4k")
+        log("dryrun phi4-mini-3.8b train_4k (16, 16):",
+            json.dumps({k: v for k, v in rec.items() if k != "trace"}))
+        if rec["status"] != "OK":
+            raise AssertionError(f"dryrun: {rec['status']} {rec.get('error')}")
+        cfg = _two_layers("phi4-mini-3.8b")
+        shape = ShapeConfig("train", 512, 4, "train")
+        with dryrun.fake_group(1):
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            dryrun.step_costs(cfg, shape, mesh, device="cuda")          # warm-up
+            real, secs, m = dryrun.step_costs(cfg, shape, mesh, device="cuda")
+            fake, _, _ = dryrun.step_costs(cfg, shape, mesh, device="meta")
+    got = (real.flops, real.memory_bytes, real.n_ops)
+    traced = (fake.flops, fake.memory_bytes, fake.n_ops)
+    terms = roofline_terms(real.flops, real.memory_bytes, real.collective_wire)
+    line = {"flops": real.flops, "bytes": real.memory_bytes, "ops": real.n_ops,
+            "traced": traced, "loss": float(m["loss"]), "step_ms": secs * 1e3,
+            "roofline_bound_ms": terms["step_time_lb_s"] * 1e3,
+            "bound_by": terms["bottleneck"], "peak_live_gb": real.peak_live_bytes / 1e9}
+    log("dryrun counter on the card (phi4 widths, 2 layers, 1 x 1 mesh):", json.dumps(line))
+    if got != traced:
+        raise AssertionError(f"dryrun: the card's step counts {got}, the trace {traced}")
+    return {"record": rec, "counter": line}
+
+
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
 PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
             "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
             "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron",
             "musicgen_card", "vlm_card", "serve_musicgen", "serve_vlm", "train_card",
-            "train_phi4", "train_xlstm")
+            "train_phi4", "train_xlstm", "train_dp", "dryrun")
 
 
 def run_picked(picked, name, smi):
@@ -3649,7 +3974,9 @@ def run_picked(picked, name, smi):
                        ("serve_musicgen", serve_musicgen), ("serve_vlm", serve_vlm),
                        ("train_card", lambda: train_card_vs_cpu({})),
                        ("train_phi4", lambda: train_phi4({})),
-                       ("train_xlstm", lambda: train_xlstm({}))):
+                       ("train_xlstm", lambda: train_xlstm({})),
+                       ("train_dp", lambda: train_dp({})),
+                       ("dryrun", lambda: dryrun_phase({}))):
         if phase in picked:
             t = time.perf_counter()
             run()
@@ -3793,6 +4120,12 @@ def main(argv=None):
     train_xlstm(train_launches)
     free_device_memory()
     lap("train_xlstm")
+    train_dp(train_launches)
+    free_device_memory()
+    lap("train_dp")
+    dryrun_phase(train_launches)
+    free_device_memory()
+    lap("dryrun")
     paged_launches.update(train_launches["paged_attn"])
     sc_launches = {"cnn_experiment": cnn_experiment()[0],
                    "serve_sc": odin["sc"]["sc_mac_launches"], **train_launches["sc_mac"]}

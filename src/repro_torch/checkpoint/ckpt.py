@@ -140,11 +140,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, template, *, verify: bool = False):
+def restore(directory: str, step: int, template, *, placements=None, mesh=None,
+            verify: bool = False):
     """Load ``step`` into the structure of ``template``, a tree of tensors
     that gives each leaf's shape, dtype and device.  A missing or extra
     leaf, or a shape or dtype mismatch, raises :class:`CheckpointError`;
-    so does a content hash mismatch with ``verify``.  Returns (tree, step)."""
+    so does a content hash mismatch with ``verify``.  Returns (tree, step).
+
+    ``placements`` — an optional matching tree of DTensor placements on
+    ``mesh`` (a ``DeviceMesh``) for elastic placement, as the reference's
+    ``shardings``: each such leaf comes back a DTensor whose rank holds its
+    own shard of the whole array (every rank reads the file; nothing is
+    sent between ranks).  A leaf whose placement is None stays a plain
+    tensor."""
     path = os.path.join(directory, f"step_{step:09d}")
     try:
         with open(os.path.join(path, _MANIFEST)) as f:
@@ -170,4 +178,10 @@ def restore(directory: str, step: int, template, *, verify: bool = False):
                                       f"vs template {tuple(t.shape)}/{t.dtype}")
             loaded[key] = _decode(raw, meta["dtype"]).to(t.device)
     it = iter(loaded[key] for key in tpl)          # the template's leaf order
-    return tree_map(lambda _: next(it), template), manifest["step"]
+    out = tree_map(lambda _: next(it), template)
+    if placements is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        out = tree_map(lambda a, pl: a if pl is None else distribute_tensor(
+            a, mesh, pl, src_data_rank=None), out, placements)
+    return out, manifest["step"]

@@ -236,6 +236,9 @@ def main(argv=None):
                     help="write a Chrome trace-event JSON of the run")
     ap.add_argument("--trace-capacity", type=int, default=65536)
     ap.add_argument("--metrics-window", type=float, default=1.0)
+    ap.add_argument("--xla-annotations", action="store_true",
+                    help="wrap each step dispatch in a torch.profiler "
+                         "record_function range (aligns profiles with spans)")
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--queue-timeout-ms", type=float, default=None)
     ap.add_argument("--degrade", action="store_true",
@@ -298,6 +301,7 @@ def main(argv=None):
         temperature=args.temperature,
         top_k=args.top_k, sample_seed=args.sample_seed, tracer=tracer,
         metrics_window=args.metrics_window, reliability=reliability,
+        xla_annotations=args.xla_annotations,
         deadline_s=(args.deadline_ms / 1e3 if args.deadline_ms is not None else None),
         queue_timeout_s=(args.queue_timeout_ms / 1e3
                          if args.queue_timeout_ms is not None else None),

@@ -1,8 +1,12 @@
-"""Step functions: the train step, the static loop and continuous batching.
+"""Step functions: the train steps, the static loop and continuous batching.
 
-The single-device subset of the JAX package's ``launch/steps.py``: the
-train step (``make_train_step``: gradient accumulation over microbatches,
-AdamW, the warmup-cosine ``lr_schedule``), the static loop's prefill and
+The port of the JAX package's ``launch/steps.py``: the train step
+(``make_train_step``: gradient accumulation over microbatches, AdamW, the
+warmup-cosine ``lr_schedule``; on DTensor params it is the sharded step,
+``grad_shardings`` pinning the gradients as the reference's pins them), the
+data-parallel step with the int8-compressed gradient all-reduce
+(``make_dp_train_step``), the optimizer state's partition specs
+(``optimizer_pspecs``), the static loop's prefill and
 decode over dense caches, and the continuous-batching
 steps over the paged KV pool and the dense per-slot caches — slot prefill,
 activity-masked decode, the guarded decode with its NaN verdict, the fused
@@ -22,6 +26,7 @@ sampled streams are deterministic for a seed but differ from
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -30,14 +35,19 @@ import torch
 from repro_torch.configs.base import BlockConfig, ModelConfig
 from repro_torch.models import lm
 from repro_torch.nn.attention import POOL_LEAVES, init_paged_cache
+from repro_torch.nn.module import P
+from repro_torch.nn.pcontext import is_dtensor
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.compress import compressed_psum
 from repro_torch.tree import leaves_with_path, map_with_name, tree_map
 
 __all__ = [
     "lr_schedule",
     "loss_and_grads",
     "make_train_step",
+    "make_dp_train_step",
+    "optimizer_pspecs",
     "make_prefill_step",
     "make_decode_step",
     "pageable_block",
@@ -100,6 +110,11 @@ def _sum_squares(g: torch.Tensor) -> torch.Tensor:
                for i in range(0, rows.shape[0], step))
 
 
+def _plain(x):
+    """A DTensor's whole value on every rank (a replicated metric)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
                     accum: int = 1, base_lr: float = 3e-4, grad_shardings=None,
                     accum_dtype=torch.float32, warmup: int = 100) -> Callable:
@@ -111,29 +126,143 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     (``adamw_update_``), so the returned params and state are the ones
     passed in, updated.  Metrics: ``loss`` (the microbatches' mean of the
     total loss), ``grad_norm`` (the float32 sum of squares over every leaf,
-    square-rooted) and ``lr``.  ``grad_shardings`` is accepted for the
-    reference's signature; on one device there is nothing to pin."""
-    del grad_shardings
+    square-rooted) and ``lr``.
+
+    With DTensor params, moments and batch (placed by ``param_pspecs``,
+    ``optimizer_pspecs`` and ``specs.batch_pspecs``) the step is the
+    sharded one: plain tensors made inside the forward count as replicated,
+    ``grad_shardings`` (a tree of DTensor placements matching params)
+    redistributes each microbatch's gradients and the accumulation carry to
+    them — as the reference's ``with_sharding_constraint`` pins its — and
+    each rank updates its own shards (``adamw_update_sharded_``); the
+    metrics come back as plain replicated scalars.  On plain tensors
+    ``grad_shardings`` has nothing to pin."""
+
+    def _pin(g_tree):
+        if grad_shardings is None:
+            return g_tree
+        return tree_map(lambda g, pl: g.redistribute(g.device_mesh, pl) if is_dtensor(g) else g,
+                        g_tree, grad_shardings)
 
     def train_step(params, opt_state, batch):
-        if accum == 1:
-            loss, _, grads = loss_and_grads(params, batch, cfg)
+        sharded = any(is_dtensor(t) for _, _, t in leaves_with_path(params))
+        if sharded:
+            from torch.distributed.tensor.experimental import implicit_replication
+            ctx = implicit_replication()
         else:
-            grads, loss = None, 0.0
-            for j in range(accum):
-                l, _, g = loss_and_grads(params, {k: v[j] for k, v in batch.items()}, cfg)
-                g = tree_map(lambda b: b.to(accum_dtype), g)
-                grads = g if grads is None else tree_map(
-                    lambda a, b: (a + b).to(accum_dtype), grads, g)
-                loss = loss + l
-            grads = tree_map(lambda g: g.to(torch.float32) / accum, grads)
-            loss = loss / accum
-        lr = lr_schedule(opt_state["step"], base_lr, warmup=warmup)
-        gnorm = torch.sqrt(sum(_sum_squares(g) for _, _, g in leaves_with_path(grads)))
-        params, opt_state = adamw.adamw_update_(grads, params, opt_state, lr, opt_cfg)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+            ctx = contextlib.nullcontext()
+        with ctx:
+            if accum == 1:
+                loss, _, grads = loss_and_grads(params, batch, cfg)
+                grads = _pin(grads)
+            else:
+                grads, loss = None, 0.0
+                for j in range(accum):
+                    l, _, g = loss_and_grads(params, {k: v[j] for k, v in batch.items()}, cfg)
+                    g = _pin(tree_map(lambda b: b.to(accum_dtype), g))
+                    grads = g if grads is None else _pin(tree_map(
+                        lambda a, b: (a + b).to(accum_dtype), grads, g))
+                    loss = loss + l
+                grads = tree_map(lambda g: g.to(torch.float32) / accum, grads)
+                loss = loss / accum
+            step = opt_state["step"]
+            lr = lr_schedule(step.to_local() if is_dtensor(step) else step, base_lr,
+                             warmup=warmup)
+            if sharded:
+                # the reference's shape-preserving reduce: each leaf's sum
+                # stays a partial sum until the one all-reduce of the total
+                gnorm = _plain(torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                                              for _, _, g in leaves_with_path(grads))))
+                params, opt_state = adamw.adamw_update_sharded_(grads, params, opt_state,
+                                                                lr, opt_cfg)
+            else:
+                gnorm = torch.sqrt(sum(_sum_squares(g) for _, _, g in leaves_with_path(grads)))
+                params, opt_state = adamw.adamw_update_(grads, params, opt_state, lr, opt_cfg)
+        return params, opt_state, {"loss": _plain(loss), "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def optimizer_pspecs(param_pspec_tree, opt_cfg: AdamWConfig):
+    """Partition spec tree matching ``adamw_init``'s structure.
+
+    Moment ``q`` mirrors the param spec; blockwise scales ``s`` replace the
+    (possibly sharded) trailing axis with None — scales are tiny.
+    """
+
+    def moment(ps: P):
+        if opt_cfg.moment_dtype == "float32":
+            return {"q": ps}
+        entries = list(ps)
+        s_spec = P(*entries[:-1], None) if entries else P()
+        return {"q": ps, "s": s_spec}
+
+    is_p = lambda x: isinstance(x, P)
+    return {
+        "mu": tree_map(moment, param_pspec_tree, is_leaf=is_p),
+        "nu": tree_map(moment, param_pspec_tree, is_leaf=is_p),
+        "step": P(),
+    }
+
+
+def _mesh_group(mesh):
+    """The process group spanning every rank of ``mesh``."""
+    import torch.distributed as dist
+
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.size() == dist.get_world_size():
+        return dist.group.WORLD
+    return mesh._flatten().get_group()
+
+
+def make_dp_train_step(cfg: ModelConfig, mesh,
+                       opt_cfg: AdamWConfig = AdamWConfig(moment_dtype="float32"),
+                       base_lr: float = 3e-4, compress: bool = True) -> Callable:
+    """Data-parallel train step with the int8-compressed gradient all-reduce.
+
+    ``(params, opt_state, batch, generator=None, uniforms=None) → (params,
+    opt_state, {"loss"})``, run by every rank of ``mesh`` (a
+    ``DeviceMesh``) on its own rows of the global batch, with plain tensors:
+    params and moments replicated (every rank holds and updates the same
+    values).  Each gradient leaf goes through ``compressed_psum`` as one row
+    ``[1, numel]`` in float32 over the group of every mesh rank and is
+    divided by the rank count — or, with ``compress=False``, is all-reduced
+    in its own dtype and divided (the reference's ``pmean``).  The
+    stochastic rounding draws its uniforms from ``generator`` leaf by leaf
+    in the params' order, the same on every rank as the reference's
+    replicated key gives; ``uniforms`` (a tree like params of float32
+    ``[1, nb, 256]``) overrides the draws.  The learning rate is
+    ``lr_schedule`` with its default warmup of 100, as in the reference; the
+    loss is the ranks' mean.
+    """
+    import torch.distributed as dist
+
+    group = _mesh_group(mesh)
+    n_shards = mesh.size()
+
+    def dp_step(params, opt_state, batch, generator=None, uniforms=None):
+        loss, _, grads = loss_and_grads(params, batch, cfg)
+        if compress:
+            def reduce(g, u=None):
+                out = compressed_psum(g.to(torch.float32).reshape(1, -1), group, generator,
+                                      uniforms=u)
+                return out.reshape(g.shape) / n_shards
+            grads = (tree_map(reduce, grads) if uniforms is None
+                     else tree_map(reduce, grads, uniforms))
+        else:
+            def reduce(g):
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+                return g / n_shards
+            grads = tree_map(reduce, grads)
+        loss = loss.clone()
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        loss = loss / n_shards
+        lr = lr_schedule(opt_state["step"], base_lr)
+        params, opt_state = adamw.adamw_update_(grads, params, opt_state, lr, opt_cfg)
+        return params, opt_state, {"loss": loss}
+
+    return dp_step
 
 
 # ---------------------------------------------------------------------------

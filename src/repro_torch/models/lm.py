@@ -27,8 +27,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.attention import POOL_LEAVES
 from repro_torch.nn.blocks import block_apply, block_cache, block_spec
-from repro_torch.nn.layers import embed, embed_spec, norm_spec, rmsnorm
+from repro_torch.nn.layers import embed, embed_spec, linear, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec, count_params
+from repro_torch.nn.pcontext import active, constrain, is_dtensor
 from repro_torch.tree import leaves_with_path, tree_map
 
 __all__ = ["param_spec", "forward", "init_caches", "kv_dtype", "loss_fn", "model_flops"]
@@ -178,6 +179,9 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
         if n > x.shape[1]:
             raise ValueError(f"{n} patch embeddings overlay only {x.shape[1]} tokens")
         x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
+    # the carry's layout from the start (the identity outside a
+    # logical_sharding context)
+    x = constrain(x, ("batch", "act_seq", None))
     B, S = x.shape[0], x.shape[1]
     start = 0 if start_pos is None else start_pos
     positions = (start + torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -190,11 +194,19 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
         per_layer = []
 
         def layer(p_l, x, c_l, bcfg=bcfg):
-            return block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
-                               odin=odin, norm_eps=cfg.norm_eps,
-                               moe_no_drop=moe_no_drop, tables=tables,
-                               spec_decode=spec_decode, q_lens=q_lens,
-                               q_decode=q_decode, pos3d=pos3d)
+            if active():
+                # pin each per-layer param slice to its logical sharding, as
+                # the reference pins its scan's slices
+                p_l = tree_map(lambda w, s: constrain(w, s.logical_axes), p_l,
+                               block_spec(bcfg, cfg.d_model))
+            y, c2 = block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
+                                odin=odin, norm_eps=cfg.norm_eps,
+                                moe_no_drop=moe_no_drop, tables=tables,
+                                spec_decode=spec_decode, q_lens=q_lens,
+                                q_decode=q_decode, pos3d=pos3d)
+            # pin the activation carry (the identity outside a
+            # logical_sharding context)
+            return constrain(y, ("batch", "act_seq", None)), c2
 
         if _records(seg, x):
             layer = _rematerialised(layer, cfg.remat)
@@ -207,10 +219,13 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
     hidden = x
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if cfg.n_codebooks > 1:
+    if cfg.n_codebooks > 1 and is_dtensor(x):
+        # a DTensor einsum folds the codebook axis into a sharded one
+        logits = torch.stack([linear(x, head[k]) for k in range(cfg.n_codebooks)], dim=2)
+    elif cfg.n_codebooks > 1:
         logits = torch.einsum("bsd,kdv->bskv", x, head.to(x.dtype))
     else:
-        logits = torch.matmul(x, head.to(x.dtype))
+        logits = linear(x, head)
     return logits, (new_caches if caches is not None else None), hidden
 
 
@@ -243,8 +258,30 @@ def _xent(logits, labels, vocab: int):
     m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    if is_dtensor(shifted):
+        # the per-token loss laid out as the labels are: DTensor may leave
+        # the difference sharded over the vocabulary's mesh dims too
+        return (lse - _masked_pick(shifted, labels)).redistribute(
+            shifted.device_mesh, labels.placements)
     picked = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
     return lse - picked
+
+
+def _masked_pick(shifted, labels):
+    """The label's entry of a DTensor ``shifted [..., V]`` by the
+    reference's masked sum, against a vocabulary index sharded as
+    ``shifted``'s last axis is: every op stays vocab-local and the sum over
+    the vocabulary is a partial sum (a gather would collect the whole
+    vocabulary axis on every rank)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    last = shifted.ndim - 1
+    iota = distribute_tensor(
+        torch.arange(shifted.shape[-1], dtype=torch.int32, device=shifted.device),
+        shifted.device_mesh,
+        [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+         for p in shifted.placements], src_data_rank=None)
+    return torch.where(iota == labels[..., None], shifted, 0.0).sum(dim=-1)
 
 
 def loss_fn(params, batch: Dict, cfg: ModelConfig):

@@ -1,16 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` → ModelConfig.
 
 The JAX package's ten architectures, in its order, each with its published
-config and its smoke config.
+config and its smoke config, and the dry-run's (arch × shape) cells: the
+``long_500k`` cell needs sub-quadratic attention and runs only for the
+SSM/hybrid archs; every arch is a decoder, so no other cell is skipped.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import List, Optional, Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LM_SHAPES, ModelConfig, ShapeConfig
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke", "cells", "skip_reason"]
 
 _MODULES = {
     "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
@@ -27,6 +29,9 @@ _MODULES = {
 
 ARCH_IDS: List[str] = list(_MODULES)
 
+# Archs with sub-quadratic sequence mixing (run the long_500k cell).
+SUBQUADRATIC = {"hymba-1.5b", "xlstm-350m"}
+
 
 def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_MODULES[arch]).CONFIG
@@ -34,3 +39,16 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return importlib.import_module(_MODULES[arch]).SMOKE
+
+
+def skip_reason(arch: str, shape: str) -> Optional[str]:
+    """None ⇒ the (arch × shape) cell runs; else why it is skipped."""
+    if shape == "long_500k" and arch not in SUBQUADRATIC:
+        return "long_500k needs sub-quadratic attention (full-attention arch; DESIGN.md §5)"
+    return None
+
+
+def cells() -> List[Tuple[str, ShapeConfig]]:
+    """All runnable (arch, shape) dry-run cells (40 assigned minus skips)."""
+    return [(arch, shape) for arch in ARCH_IDS for shape in LM_SHAPES.values()
+            if skip_reason(arch, shape.name) is None]

@@ -41,6 +41,7 @@ from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.nn.layers import apply_mrope, apply_rope, linear, linear_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.pcontext import contiguous_grad, is_dtensor, reshape
 
 __all__ = ["attn_spec", "attention", "init_cache", "init_paged_cache", "sdpa",
            "DEFAULT_CHUNK", "KV_SCALE", "POOL_LEAVES"]
@@ -204,9 +205,57 @@ def _blockwise(q, k, v, q_pos, k_pos, window: int, scale: float, chunk: int):
     return torch.cat(outs, dim=1).reshape(B, Sq, H, Dv)
 
 
+def _rows(pos, mesh, batch_pl, offset: int, n: int):
+    """This rank's rows ``offset .. offset+n`` of a position tensor: a
+    DTensor's local rows of its batch sharding, a plain 2-D one sliced, a
+    1-D (shared) one as it is."""
+    if is_dtensor(pos):
+        return pos.redistribute(mesh, batch_pl[:pos.device_mesh.ndim]).to_local() \
+            if pos.dim() == 2 else pos.full_tensor()
+    return pos[offset:offset + n] if pos.dim() == 2 and pos.shape[0] > 1 else pos
+
+
+def _sharded_sdpa(q, k, v, q_pos, k_pos, window, chunk, blockwise_threshold):
+    """``sdpa`` of DTensor q/k/v, each rank on its own (batch, head) block:
+    batch sharded as ``q``'s is, heads over the other mesh dims that divide
+    the KV heads (a query head's KV head then lives on the same rank), the
+    sequence whole.  The local result is this rank's block of the output."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = q.device_mesh
+    B, Sq, H, _ = q.shape
+    Hkv = k.shape[2]
+    batch_dims = [i for i, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 0]
+    pl, m = [], 1
+    for i, p in enumerate(q.placements):
+        if i in batch_dims:
+            pl.append(Shard(0))
+        elif Hkv % (m * mesh.size(i)) == 0:
+            pl.append(Shard(2))
+            m *= mesh.size(i)
+        else:
+            pl.append(Replicate())
+    pl = tuple(pl)
+    # the local blocks' gradients come back contiguous, as DTensor's own
+    # views of them assume
+    ql, kl, vl = (contiguous_grad(t.redistribute(mesh, pl).to_local()) for t in (q, k, v))
+    _, off = compute_local_shape_and_global_offset(q.shape, mesh, pl)
+    batch_pl = tuple(Shard(0) if i in batch_dims else Replicate() for i in range(mesh.ndim))
+    qp = _rows(q_pos, mesh, batch_pl, off[0], ql.shape[0])
+    kp = _rows(k_pos, mesh, batch_pl, off[0], ql.shape[0])
+    out = contiguous_grad(sdpa(ql, kl, vl, qp, kp, window, chunk, blockwise_threshold))
+    shape = torch.Size((B, Sq, H, v.shape[-1]))
+    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def sdpa(q, k, v, q_pos, k_pos, window: int = 0, chunk: int = DEFAULT_CHUNK,
          blockwise_threshold: int = 4096):
-    """Dispatch between direct and blockwise attention. Shapes as in _sdpa."""
+    """Dispatch between direct and blockwise attention. Shapes as in _sdpa.
+    DTensor q/k/v run per rank on local blocks (``_sharded_sdpa``)."""
+    if is_dtensor(q):
+        return _sharded_sdpa(q, k, v, q_pos, k_pos, window, chunk, blockwise_threshold)
     scale = 1.0 / math.sqrt(q.shape[-1])
     B = q.shape[0]
     Sq, Sk = q.shape[1], k.shape[1]
@@ -405,9 +454,9 @@ def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
                    spec_decode: bool = False, q_lens=None, q_decode=None, pos3d=None):
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = linear(x, p["q"], odin).reshape(B, S, H, D)
-    k = linear(x, p["k"], odin).reshape(B, S, Hkv, D)
-    v = linear(x, p["v"], odin).reshape(B, S, Hkv, D)
+    q = reshape(linear(x, p["q"], odin), B, S, H, D)
+    k = reshape(linear(x, p["k"], odin), B, S, Hkv, D)
+    v = reshape(linear(x, p["v"], odin), B, S, Hkv, D)
     if cfg.rope == "mrope":
         if pos3d is None:
             # text-only rows and decode steps: M-RoPE at (t, t, t)
@@ -426,7 +475,7 @@ def _gqa_attention(p, x, cfg: AttnConfig, positions, cache, odin, tables=None,
                                        q_decode=q_decode)
     else:
         o, new_cache = _dense_gqa_core(q, k, v, cfg, positions, cache)
-    o = o.reshape(B, S, H * D)
+    o = reshape(o, B, S, H * D)
     return linear(o, p["o"], odin), new_cache
 
 
@@ -444,8 +493,8 @@ def mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg: AttnConfig,
     not, and is a speed-up the reference lacks.  Returns ``[B, S, H,
     v_head_dim]``."""
     B, H = q_nope.shape[0], cfg.n_heads
-    k_nope = linear(c_kv, p["k_up"], odin).reshape(B, -1, H, cfg.qk_nope_dim)
-    v = linear(c_kv, p["v_up"], odin).reshape(B, -1, H, cfg.v_head_dim)
+    k_nope = reshape(linear(c_kv, p["k_up"], odin), B, -1, H, cfg.qk_nope_dim)
+    v = reshape(linear(c_kv, p["v_up"], odin), B, -1, H, cfg.v_head_dim)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -467,9 +516,9 @@ def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):
     qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
     if "q_down" in p:
         cq = rmsnorm(linear(x, p["q_down"], odin), p["q_norm"])
-        q = linear(cq, p["q_up"], odin).reshape(B, S, H, qk_dim)
+        q = reshape(linear(cq, p["q_up"], odin), B, S, H, qk_dim)
     else:
-        q = linear(x, p["q"], odin).reshape(B, S, H, qk_dim)
+        q = reshape(linear(x, p["q"], odin), B, S, H, qk_dim)
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
 
@@ -491,7 +540,7 @@ def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):
         new_cache = {"c_kv": c_kv_q, "k_rope": k_rope_q, "pos": pos + S}
         c_kv, k_rope = _cache_read(c_kv_q, x.dtype), _cache_read(k_rope_q, x.dtype)
     o = mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, k_pos, odin)
-    return linear(o.reshape(B, S, H * cfg.v_head_dim), p["o"], odin), new_cache
+    return linear(reshape(o, B, S, H * cfg.v_head_dim), p["o"], odin), new_cache
 
 
 def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.odin_linear import OdinConfig, odin_linear
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.pcontext import is_dtensor
 
 __all__ = [
     "linear_spec", "linear", "norm_spec", "rmsnorm", "layernorm",
@@ -34,10 +35,47 @@ def linear(x: torch.Tensor, w: torch.Tensor, odin: Optional[OdinConfig] = None,
     ``drift_step`` keys the PCRAM drift-noise pattern in time; 0 keeps the
     excursion fixed per seed.
     """
+    if is_dtensor(x) and x.dim() > 2:
+        return _InnerGatheredGrad.apply(_linear(_gather_inner(x), w, odin, drift_step))
+    return _linear(x, w, odin, drift_step)
+
+
+def _linear(x, w, odin, drift_step):
     if odin is None or odin.mode == "exact":
         return torch.matmul(x, w.to(x.dtype))
     y = odin_linear(x.float(), w.float(), odin, drift_step=drift_step)
     return y.to(x.dtype)
+
+
+def _gather_inner(x):
+    """A DTensor activation ``[B, S, .., d]`` with its inner (sequence)
+    dims gathered, batch and feature sharding kept: Megatron's sequence
+    parallelism gathers the sequence before a column-parallel product, and
+    the product's flattened ``[B·S, d]`` then shards as the batch alone (a
+    product over a flattened batch×sequence sharding leaves DTensor to
+    search redistribution plans over every candidate layout)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    inner = range(1, x.dim() - 1)
+    want = [Replicate() if isinstance(p, Shard) and p.dim in inner else p
+            for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+class _InnerGatheredGrad(torch.autograd.Function):
+    """The identity on a product's DTensor output, whose backward gathers
+    the gradient's inner dims as ``_gather_inner`` gathers the input's: a
+    gradient arriving sequence-sharded (from the sharded activation carry)
+    would otherwise reach the weight's ``[B·S, F]`` product flattened over
+    batch×sequence."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_inner(g)
 
 
 def norm_spec(d: int) -> ParamSpec:
@@ -62,6 +100,15 @@ def embed_spec(vocab: int, d: int) -> ParamSpec:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(table):
+        # DTensor has sharding strategies for the embedding op and its
+        # backward (not for a gather by advanced indexing); the table is
+        # gathered whole first, since a sharded lookup's masked partial sum
+        # compares its mask by value, which meta shards cannot
+        from torch.distributed.tensor import Replicate
+
+        whole = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+        return F.embedding(tokens.long(), whole)
     return table[tokens.long()]
 
 

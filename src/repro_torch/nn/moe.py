@@ -16,8 +16,9 @@ DeepSeek-style extensions: shared (always-on) experts, the only part that
 goes through ODIN's ``linear``, and the aux-loss-free bias, added to the
 routing scores for *selection* only, never to the gate weight.
 
-The reference's sharding hints (``constrain``) are no-ops outside a
-sharding context and are left out.
+The reference's sharding hints are kept (``nn.pcontext.constrain``: the
+dispatch buffer on experts × capacity, the combine on capacity); they are
+the identity outside a ``logical_sharding`` context and on plain tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.layers import linear, linear_spec
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.pcontext import constrain
 
 __all__ = ["moe_spec", "moe_block", "dispatch_indices", "top_k_lowest_first"]
 
@@ -139,6 +141,8 @@ def moe_block(p, x: torch.Tensor, cfg: MoEConfig, activation_kind: str = "swiglu
     token_for_slot = torch.cat([token_idx, token_idx.new_zeros(1)])[slot_to_assign.long()]
     filled = (slot_to_assign < A)[:, None]
     buf = torch.where(filled, xt[token_for_slot.long()], 0).reshape(E, capacity, d)
+    # EP sharding hint: experts on "model", capacity on data
+    buf = constrain(buf, ("experts", "capacity", None))
 
     y = _expert_ffn(buf, p, activation_kind, x.dtype).reshape(E * capacity, d)
 
@@ -149,11 +153,12 @@ def moe_block(p, x: torch.Tensor, cfg: MoEConfig, activation_kind: str = "swiglu
     # each add — the reference's segment_sum over token_idx, with no
     # atomics, so the sum is the same run to run and at any batch.
     rows = y[slot.clamp_max(E * capacity - 1).long()]
-    out_per_assign = torch.where(keep[:, None], rows, 0)       # [A, d]
+    out_per_assign = constrain(torch.where(keep[:, None], rows, 0), ("capacity", None))
     weighted = (out_per_assign * gates.reshape(A, 1).to(x.dtype)).reshape(T, k, d)
     out = weighted[:, 0]
     for j in range(1, k):
         out = out + weighted[:, j]
+    out = constrain(out, ("capacity", None))
 
     if "shared_gate" in p:
         sg = F.silu(linear(xt, p["shared_gate"], odin)) * linear(xt, p["shared_up"], odin)

@@ -11,8 +11,9 @@ scan run in float32 with the JAX package's cast points: the x-projection,
 Δ, the scan input and the stored conv context are float32, ``y`` is cast
 back to the activation dtype before the gate.  The scan is a plain time
 loop (:func:`repro_torch.nn.scan_utils.chunked_scan`): about six eager
-operations a token, as the JAX package runs jnp there.  The JAX package's
-sharding ``constrain`` of the carry has no counterpart on one device.
+operations a token, as the JAX package runs jnp there.  The carry is pinned
+to batch × mlp sharding as in the reference (``nn.pcontext.constrain``, the
+identity outside a ``logical_sharding`` context and on plain tensors).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.layers import linear, linear_spec
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.pcontext import constrain
 from repro_torch.nn.scan_utils import chunked_scan
 
 __all__ = ["ssm_spec", "ssm_block", "init_ssm_state"]
@@ -106,6 +108,7 @@ def ssm_block(p, x: torch.Tensor, cfg: SSMConfig, state=None,
 
     h0 = (state["h"] if state is not None
           else torch.zeros((B, d_inner, N), dtype=torch.float32, device=x.device))
+    h0 = constrain(h0, ("batch", "mlp", None))   # pin batch/TP sharding of the carry
     y, h = _selective_scan(u.float(), dt, A, Bc, Cc, p["D"], h0)
     y = y.to(x.dtype) * F.silu(z)
     out = linear(y, p["out_proj"], odin)

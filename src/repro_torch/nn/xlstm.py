@@ -16,8 +16,9 @@ together, the padded gate ``f = 30`` included).
 The token scans are :func:`repro_torch.nn.scan_utils.chunked_scan` (a plain
 time loop in the reference's chunk order); the chunkwise mLSTM form loops
 over chunks and runs each chunk's masked decay matrices as batched
-matmuls.  The reference's sharding hint on the carry (``constrain``) has
-no effect on one device and has no counterpart here.
+matmuls.  The reference's sharding hint on the carry is kept
+(``nn.pcontext.constrain``: the state's batch axis), the identity outside a
+``logical_sharding`` context and on plain tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.layers import linear, linear_spec, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
+from repro_torch.nn.pcontext import active, constrain
 from repro_torch.nn.scan_utils import chunked_scan
 
 __all__ = ["mlstm_spec", "mlstm_block", "slstm_spec", "slstm_block", "init_mlstm_state",
@@ -73,6 +75,8 @@ def mlstm_block(p, x: torch.Tensor, n_heads: int, state=None,
     o_gate = torch.sigmoid(linear(x, p["o_gate"], odin).float())
 
     st = state if state is not None else init_mlstm_state(n_heads, d, B, x.device)
+    if active():      # pin batch sharding of the matrix-memory carry
+        st = {k: constrain(v, ("batch",) + (None,) * (v.dim() - 1)) for k, v in st.items()}
     if impl == "chunkwise" and S > 1:
         (C, n, m), ys = _mlstm_chunkwise(q, k, v, i_pre, f_pre,
                                          (st["C"], st["n"], st["m"]), chunk)
@@ -185,6 +189,8 @@ def slstm_block(p, x: torch.Tensor, state=None, odin: Optional[OdinConfig] = Non
     B, S, d = x.shape
     pre = linear(x, p["zifo"], odin).float().reshape(B, S, 4, d)
     st = state if state is not None else init_slstm_state(d, B, x.device)
+    if active():
+        st = {k: constrain(v, ("batch",) + (None,) * (v.dim() - 1)) for k, v in st.items()}
     r = p["r_zifo"]                                              # [4, d]
 
     def step(carry, inp):

@@ -15,7 +15,8 @@ parameters and moments in place, a block of whole rows (rows of the
 trailing axis) at a time, so its temporaries are a few float32 copies of
 one block: every operation is elementwise or, for the int8 codec, blockwise
 along the trailing axis, so the blocks give the functional form's values
-bit for bit.
+bit for bit.  ``adamw_update_sharded_`` runs the in-place update on the
+local shards of DTensor parameters and moments.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ import torch.nn.functional as F
 from repro_torch.core.quant import true_div
 from repro_torch.tree import leaves_with_path, tree_map
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_",
+           "adamw_update_sharded_"]
 
 
 @dataclass(frozen=True)
@@ -171,6 +173,29 @@ def adamw_update(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
 BLOCK_ELEMS = 1 << 24
 
 
+def _update_leaf_(g, p, mu, nu, lr, c1, c2, cfg: AdamWConfig):
+    """One leaf of ``adamw_update_``: ``p``, ``mu`` and ``nu`` written in
+    place, a block of whole trailing-axis rows at a time."""
+    decay = p.dim() >= 2 and bool(cfg.weight_decay)
+    L = p.shape[-1] if p.dim() else 1
+    rows = p.numel() // L
+    p2, g2 = p.view(rows, L), g.reshape(rows, L)
+    mu2 = {k: a.view(rows, -1) for k, a in mu.items()}
+    nu2 = {k: a.view(rows, -1) for k, a in nu.items()}
+    step = max(1, BLOCK_ELEMS // L)
+    for lo in range(0, rows, step):
+        sl = slice(lo, lo + step)
+        mb = {k: a[sl] for k, a in mu2.items()}
+        nb = {k: a[sl] for k, a in nu2.items()}
+        m, v, newp = _moments(g2[sl].to(torch.float32), p2[sl].to(torch.float32),
+                              _load(mb, cfg, "m"), _load(nb, cfg, "v"), decay,
+                              lr, c1, c2, cfg)
+        p2[sl].copy_(newp)
+        for dst, src in ((mb, _store(m, cfg, "m")), (nb, _store(v, cfg, "v"))):
+            for k, a in src.items():
+                dst[k].copy_(a)
+
+
 @torch.no_grad()
 def adamw_update_(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
     """``adamw_update`` in place: writes the new parameters into ``params``
@@ -180,26 +205,74 @@ def adamw_update_(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
     least); the values equal ``adamw_update``'s bit for bit."""
     state["step"].add_(1)
     c1, c2 = _corrections(state["step"], cfg)
+    tree_map(lambda g, p, mu, nu: _update_leaf_(g, p, mu, nu, lr, c1, c2, cfg),
+             grads, params, state["mu"], state["nu"])
+    return params, state
 
-    def leaf(g, p, mu, nu):
-        decay = p.dim() >= 2 and bool(cfg.weight_decay)
-        L = p.shape[-1] if p.dim() else 1
-        rows = p.numel() // L
-        p2, g2 = p.view(rows, L), g.reshape(rows, L)
-        mu2 = {k: a.view(rows, -1) for k, a in mu.items()}
-        nu2 = {k: a.view(rows, -1) for k, a in nu.items()}
-        step = max(1, BLOCK_ELEMS // L)
-        for lo in range(0, rows, step):
-            sl = slice(lo, lo + step)
-            mb = {k: a[sl] for k, a in mu2.items()}
-            nb = {k: a[sl] for k, a in nu2.items()}
-            m, v, newp = _moments(g2[sl].to(torch.float32), p2[sl].to(torch.float32),
-                                  _load(mb, cfg, "m"), _load(nb, cfg, "v"), decay,
-                                  lr, c1, c2, cfg)
-            p2[sl].copy_(newp)
-            for dst, src in ((mb, _store(m, cfg, "m")), (nb, _store(v, cfg, "v"))):
-                for k, a in src.items():
-                    dst[k].copy_(a)
 
-    tree_map(leaf, grads, params, state["mu"], state["nu"])
+def _local(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _sharded_leaf_(g, p, mu, nu, lr, c1, c2, cfg: AdamWConfig):
+    """``_update_leaf_`` on the local shards of DTensor ``g``, ``p`` and
+    moments placed as ``launch.steps.optimizer_pspecs`` places them: ``q``
+    as ``p``, an int8 moment's scales ``s`` as ``p`` but with the trailing
+    axis whole.  Every operation is elementwise or blockwise along the
+    trailing axis, so each rank updates its own shard — unless the int8
+    codec's blocks straddle the shards of a sharded trailing axis, and then
+    the leaf is gathered along that axis first and its shard written back.
+    A trailing-axis shard's new scales are all-gathered into every rank's
+    whole-axis ``s``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    if not isinstance(p, DTensor):
+        return _update_leaf_(g, p, mu, nu, lr, c1, c2, cfg)
+    mesh, place = p.device_mesh, tuple(p.placements)
+    g = g.redistribute(mesh, place)
+    last = p.dim() - 1
+    trailing = [i for i, pl in enumerate(place) if isinstance(pl, Shard) and pl.dim == last]
+    if "s" not in mu or not trailing:
+        return _update_leaf_(g.to_local(), p.to_local(), {k: a.to_local() for k, a in mu.items()},
+                             {k: a.to_local() for k, a in nu.items()}, lr, c1, c2, cfg)
+    local_shape, offset = compute_local_shape_and_global_offset(p.shape, mesh, place)
+    if local_shape[-1] % cfg.block == 0:
+        b0, b1 = offset[-1] // cfg.block, (offset[-1] + local_shape[-1]) // cfg.block
+        ms, ns = (m["s"].to_local()[..., b0:b1] for m in (mu, nu))
+        _update_leaf_(g.to_local(), p.to_local(), {"q": mu["q"].to_local(), "s": ms},
+                      {"q": nu["q"].to_local(), "s": ns}, lr, c1, c2, cfg)
+        s_place = list(mu["s"].placements)
+        for i in trailing:
+            s_place[i] = Shard(last)
+        for m, part in ((mu, ms), (nu, ns)):
+            whole = DTensor.from_local(part.contiguous(), mesh, s_place, run_check=False).redistribute(
+                mesh, mu["s"].placements)
+            m["s"].to_local().copy_(whole.to_local())
+        return None
+    # the codec's blocks straddle the trailing axis's shards: gather it
+    work = tuple(Replicate() if i in trailing else pl for i, pl in enumerate(place))
+    full = [a.redistribute(mesh, work) for a in (g, p, mu["q"], nu["q"])]
+    _update_leaf_(full[0].to_local(), full[1].to_local(),
+                  {"q": full[2].to_local(), "s": mu["s"].to_local()},
+                  {"q": full[3].to_local(), "s": nu["s"].to_local()}, lr, c1, c2, cfg)
+    for src, dst in zip(full[1:], (p, mu["q"], nu["q"])):
+        dst.to_local().copy_(src.redistribute(mesh, place).to_local())
+    return None
+
+
+@torch.no_grad()
+def adamw_update_sharded_(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
+    """``adamw_update_`` on DTensor params, gradients and moments (placed by
+    ``optimizer_pspecs``), each rank updating its own shards in place
+    (``_sharded_leaf_``); the step count is a replicated scalar and ``lr``
+    a replicated or plain one."""
+    step = _local(state["step"])
+    step.add_(1)
+    c1, c2 = _corrections(step, cfg)
+    lr = _local(lr)
+    tree_map(lambda g, p, mu, nu: _sharded_leaf_(g, p, mu, nu, lr, c1, c2, cfg),
+             grads, params, state["mu"], state["nu"])
     return params, state

@@ -6,7 +6,7 @@ spelled like ``jax.tree_util.keystr`` (``[0]['attn']['k_pool']``).
 """
 from __future__ import annotations
 
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 __all__ = ["tree_map", "map_with_name", "leaves_with_path"]
 
@@ -15,12 +15,17 @@ def _key(k) -> str:
     return f"[{k!r}]"
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leaf-wise over one or more trees of the same shape."""
+def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):
+    """Apply ``fn`` leaf-wise over one or more trees of the same shape;
+    ``is_leaf(node)`` true stops the descent there (a partition spec is a
+    tuple, and a leaf)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
 

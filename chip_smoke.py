@@ -80,8 +80,8 @@ Phases, each fatal on failure:
    run's streams (partings only at reported near ties);
 8. Hymba: hymba-1.5b's widths over 2 of its layers (one global, one
    window) on the card equal to the CPU plain path (streams and logits,
-   float32); then hymba-1.5b at every width over 11 of its 32 layers (all
-   three global layers, 4 window layers in each window segment; random bf16
+   float32); then hymba-1.5b at every width over 7 of its 32 layers (all
+   three global layers, 2 window layers in each window segment; random bf16
    weights): 8 prompts of 1536 tokens past the 1024-token window, 64 greedy
    tokens, ``paged_attention`` launched once a decode-carrying forward by
    each of the three global layers; its first 2 prompts held against
@@ -162,24 +162,29 @@ Phases, each fatal on failure:
    bf16 peak, peak memory, the loss curve, a profile of one step with the
    AdamW update's share;
 19. xlstm-350m trained at every width and all 24 layers through the
-   training CLI (``train_xlstm``, 8 x 256 tokens, int8 moments): a crash
+   training CLI (``train_xlstm``, 8 x 128 tokens, int8 moments): a crash
    at step 4 without a checkpoint (exit 137), a ``--resume`` run to step 6
    whose checkpoint equals bit for bit the state of a straight in-process
    ``train_loop``, step ms and checkpoint bytes;
 20. data parallelism (``train_dp``): phi4-mini-3.8b at every width over 4 of
    its 32 layers trained by two ranks on the one card over a gloo group of
    CUDA tensors (bf16 weights, float32 moments, 4 x 512 tokens a step, 2 x
-   512 a rank), 3 steps with the int8-compressed gradient all-reduce and 3
+   512 a rank), 2 steps with the int8-compressed gradient all-reduce and 2
    with the float one: step and all-reduce ms, wire bytes, the loss curves,
    peak memory a rank, rank 0's first compressed step held against
    ``compressed_psum_plain`` of both ranks' gradients on the card;
-21. the dry-run (``dryrun``): phi4-mini-3.8b's ``train_4k`` cell at full
-   size on the (16, 16) fake mesh, its record printed; the counter's FLOPs,
-   bytes and op count of one sharded train step (phi4's widths over 2
-   layers, a 1 x 1 mesh) equal on the card and traced on meta tensors, the
-   card's step ms beside its roofline bound.  No kernel is launched on a
-   training, data-parallel or dry-run path (exact mode): each kernel's
-   count is read there and is 0.
+21. the dry-run (``dryrun``): phi4-mini-3.8b's ``train_4k``, ``prefill_32k``
+   and ``decode_32k`` cells at full size on the (16, 16) fake mesh, each
+   record printed; the counter's FLOPs, bytes and op count of one sharded
+   train step (phi4's widths over 2 layers, a 1 x 1 mesh) equal on the card
+   and traced on meta tensors, the card's step ms beside its roofline
+   bound; then the sharded static loop on the card: two gloo ranks as a
+   (1, 2) mesh, phi4's widths over 2 layers in float32, a 2 x 1024 prefill
+   into caches placed by ``cache_pspecs`` and 8 decode steps, each a flash
+   decode over the ranks' cache rows, rank 0's logits and tokens held
+   against the single-device loop.  No kernel is launched on a training,
+   data-parallel or dry-run path (exact mode): each kernel's count is read
+   there and is 0.
 
 Each phase's seconds are printed.
 
@@ -2492,8 +2497,8 @@ def hymba_card_vs_cpu():
 
 
 def load_hymba():
-    """hymba-1.5b at every published width over 11 of its 32 layers — its
-    three global layers (first, middle, last) and 4 window layers in each of
+    """hymba-1.5b at every published width over 7 of its 32 layers — its
+    three global layers (first, middle, last) and 2 window layers in each of
     the two window segments, so the paged_attn layers and the ring wrap are
     all there — random bf16 weights (the SSM's A_log, D, dt_bias and the
     fusion's mix_beta float32) from a seeded generator on the card, and
@@ -2522,7 +2527,7 @@ def load_hymba():
 
 HYMBA_PROMPTS, HYMBA_COMPARED = 8, 2
 # window layers kept in each of hymba's two window segments (of 14 and 15)
-HYMBA_WINDOW_LAYERS = 4
+HYMBA_WINDOW_LAYERS = 2
 
 
 def ssm_prefill_cost(cfg, params):
@@ -2562,7 +2567,7 @@ def ssm_prefill_cost(cfg, params):
 
 
 def serve_hybrid(cfg, params, prompts):
-    """hymba-1.5b served at full width over 11 of its 32 layers
+    """hymba-1.5b served at full width over 7 of its 32 layers
     (``load_hymba``) through the port's engine on the card: 8 prompts of 1536 tokens (past the 1024-token window,
     so the rings of 1024 + 256 rows wrap) with 64 greedy tokens, max_len 2048,
     block 16, chunk 256 (mixed dispatch and prefix sharing off by themselves).
@@ -3295,7 +3300,7 @@ TRAIN_CARD_TOL = {"loss": 3.5e-6, "grad_norm": 7.5e-6, "grad_leaf": 3.4e-5}
 TRAIN_SMOKE_SHAPE = (2, 32)           # batch x sequence of the smoke configs
 PHI4_TRAIN_SHAPE = (4, 512)           # batch x sequence of train_phi4
 PHI4_TRAIN_STEPS = 6
-XLSTM_TRAIN_SHAPE = (8, 256)          # batch x sequence of train_xlstm
+XLSTM_TRAIN_SHAPE = (8, 128)          # batch x sequence of train_xlstm
 
 
 def kernel_launch_counts():
@@ -3531,7 +3536,7 @@ def _ckpt_bytes(path):
 def train_xlstm(launches):
     """xlstm-350m at every width and all 24 layers (random bf16 weights,
     int8 moments) through the training CLI, ``python -m
-    repro_torch.launch.train``, on batches of 8 x 256: ``--steps 6
+    repro_torch.launch.train``, on batches of 8 x 128: ``--steps 6
     --save-every 2 --simulate-crash-at 4`` must exit 137 with the latest
     checkpoint at step 4; ``--resume`` must exit 0, print "resumed from step
     4" and save step 6.  That checkpoint (params, AdamW moments and step,
@@ -3617,7 +3622,7 @@ def train_xlstm(launches):
 # distribution and analysis: the data-parallel step on two ranks, the dry-run
 # ---------------------------------------------------------------------------
 
-DP_LAYERS, DP_STEPS, DP_SHAPE = 4, 3, (4, 512)     # phi4 layers, steps a mode, global B x S
+DP_LAYERS, DP_STEPS, DP_SHAPE = 4, 2, (4, 512)     # phi4 layers, steps a mode, global B x S
 DP_LR = 3e-4
 
 
@@ -3876,24 +3881,181 @@ def _dp_cli():
             "wall_s": wall}
 
 
+# the sharded static loop of ``dryrun``: phi4-mini-3.8b's widths over 2
+# layers (float32 weights and KV), two gloo ranks on the one card as a
+# (1, 2) mesh (data x model: the cache's rows split over model), a prefill
+# of 2 x 1024 tokens and 8 decode steps
+SHARDED_LOOP = {"batch": 2, "prompt": 1024, "gen": 8}
+# |sharded - single-device| logits, float32 with TF32 off: 4x the worst
+# measured on an NVIDIA H100 80GB HBM3 (700 W), 1.42e-5 at the prefill
+# (8.7e-6 at decode; the largest logit 4.85): the row-parallel products'
+# partial sums and the flash decode's combine reorder float32 sums
+SHARDED_LOOP_TOL = 5.7e-5
+
+
+def _gloo_cuda_all_gather():
+    """On a gloo group, torch's functional all-gather of CUDA tensors (the
+    op DTensor gathers a sharded dim with) crashes the process with SIGSEGV
+    in torch 2.11 on an H100 host, while c10d's ``all_gather_into_tensor``
+    and the other c10d collectives on the same tensors run (each probed in
+    its own pair of ranks).  Registers the functional op's CUDA kernel as
+    that call, for this process; returns the registration, which lasts
+    while it is held."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def all_gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib.impl("all_gather_into_tensor", all_gather, "CUDA")
+    return lib
+
+
+def _sharded_loop_rank(rank, port, out_path):
+    """One rank of the sharded static loop: a gloo group of two ranks on the
+    one card.  Each rank runs the loop on its shards; rank 0 then runs the
+    single-device loop on the whole params and writes both, with each
+    path's kernel launches."""
+    import dataclasses
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import static_loop
+    from repro_torch.models import lm
+    from repro_torch.nn.module import materialize
+    from repro_torch.tree import tree_map
+
+    faulthandler.enable()            # a fatal signal prints the rank's Python stack
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    gather = _gloo_cuda_all_gather()   # noqa: F841 (held while the rank runs)
+    try:
+        cfg = _two_layers("phi4-mini-3.8b")
+        spec = tree_map(lambda s: dataclasses.replace(s, dtype=torch.float32),
+                        lm.param_spec(cfg))
+        params = materialize(spec, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        B, S, gen = SHARDED_LOOP["batch"], SHARDED_LOOP["prompt"], SHARDED_LOOP["gen"]
+        prompts = torch.randint(0, cfg.vocab, (B, S), dtype=torch.int32, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(1))
+        mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+        launches, out = {}, {"rank": rank}
+        with no_kernel_launches("dryrun_sharded_loop", launches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sharded = static_loop(cfg, params, prompts, gen, S + gen, mesh)
+            torch.cuda.synchronize()
+            out["sharded_s"] = time.perf_counter() - t
+        if rank == 0:
+            with no_kernel_launches("dryrun_plain_loop", launches):
+                plain = static_loop(cfg, params, prompts, gen, S + gen)
+            out["prefill_max_abs_err"] = float((sharded[0] - plain[0]).abs().max())
+            out["decode_max_abs_err"] = float((sharded[1] - plain[1]).abs().max())
+            out["logit_scale"] = float(plain[0].abs().max())
+            top = torch.topk(torch.cat([plain[0][None], plain[1]]), 2, dim=-1).values
+            out["smallest_top2_gap"] = float((top[..., 0] - top[..., 1]).min())
+            out["tokens_equal"] = bool(torch.equal(sharded[2], plain[2]))
+            out["tokens"] = sharded[2].tolist()
+            out["plain_tokens"] = plain[2].tolist()
+        out["launches"] = launches
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        import traceback
+        with open(f"{out_path}.err.{rank}", "w") as f:     # the parent prints it
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_loop(launches):
+    """The sharded prefill and decode steps on the card: two gloo ranks as a
+    (1, 2) mesh run ``SHARDED_LOOP`` at phi4-mini-3.8b's widths over 2 layers
+    (float32 weights and caches, TF32 off), the caches placed by
+    ``cache_pspecs`` (1032 rows, 516 a rank) and each decode step a flash
+    decode over the ranks' rows; rank 0's prefill and decode logits must
+    equal the single-device static loop's on the same weights within
+    ``SHARDED_LOOP_TOL`` and its tokens must be the same, or part only at a
+    top-2 gap within that bound (reported)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "loop.json")
+        t = time.perf_counter()
+        try:
+            mp.start_processes(_sharded_loop_rank, args=(_free_port(), path), nprocs=2,
+                               join=True, start_method="spawn")
+        except Exception:
+            for rank in range(2):
+                if os.path.exists(f"{path}.err.{rank}"):
+                    with open(f"{path}.err.{rank}") as f:
+                        log(f"sharded loop rank {rank} failed:\n{f.read()[-6000:]}")
+            raise
+        wall = time.perf_counter() - t
+        ranks = []
+        for rank in range(2):
+            with open(f"{path}.{rank}") as f:
+                ranks.append(json.load(f))
+    r = ranks[0]
+    for name, by_path in r["launches"].items():
+        for p, v in by_path.items():
+            launches.setdefault(name, {})[p] = v
+    line = {k: v for k, v in r.items() if k not in ("launches", "rank")}
+    line.update(wall_s=wall, peak_gb_rank1=ranks[1]["peak_gb"], tol=SHARDED_LOOP_TOL,
+                **SHARDED_LOOP)
+    log("dryrun sharded loop (phi4 widths, 2 layers, mesh (1, 2), gloo):", json.dumps(line))
+    worst = max(r["prefill_max_abs_err"], r["decode_max_abs_err"])
+    if not worst <= SHARDED_LOOP_TOL:
+        raise AssertionError(f"sharded loop: logits {worst} past {SHARDED_LOOP_TOL}")
+    if not r["tokens_equal"] and r["smallest_top2_gap"] > SHARDED_LOOP_TOL:
+        raise AssertionError("sharded loop: tokens part from the single-device loop "
+                             "with no near tie")
+    return line
+
+
+# the dry-run's serving cells, traced after ``train_4k`` (meta shards: the
+# host's CPU alone)
+DRYRUN_SERVING_CELLS = ("prefill_32k", "decode_32k")
+
+
 def dryrun_phase(launches):
-    """The dry-run: phi4-mini-3.8b's ``train_4k`` cell at full size on the
-    (16, 16) fake mesh, its record printed; then the counter held to the
-    card: one sharded train step at phi4's widths over 2 layers on a 1 x 1
-    mesh (4 x 512 tokens, int8 moments), run on the card and traced on meta
-    tensors, must count the same FLOPs, bytes and ops; the card's step ms
-    is printed beside its roofline bound."""
+    """The dry-run: phi4-mini-3.8b's ``train_4k``, ``prefill_32k`` and
+    ``decode_32k`` cells at full size on the (16, 16) fake mesh, each record
+    printed with its trace seconds, the decode cell's collectives by scope
+    (the weights' gathers and the flash decode's partials); then the
+    counter held to the card: one sharded train step at phi4's widths over
+    2 layers on a 1 x 1 mesh (4 x 512 tokens, int8 moments), run on the
+    card and traced on meta tensors, must count the same FLOPs, bytes and
+    ops; the card's step ms is printed beside its roofline bound; then
+    ``sharded_loop``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.hlo import roofline_terms
     from repro_torch.launch.mesh import make_mesh
 
-    with no_kernel_launches("dryrun", launches):
-        rec = dryrun.run_cell("phi4-mini-3.8b", "train_4k")
-        log("dryrun phi4-mini-3.8b train_4k (16, 16):",
-            json.dumps({k: v for k, v in rec.items() if k != "trace"}))
+    cells = {}
+    for cell in ("train_4k",) + DRYRUN_SERVING_CELLS:
+        with no_kernel_launches("dryrun" if cell == "train_4k" else f"dryrun_{cell}",
+                                launches):
+            rec = dryrun.run_cell("phi4-mini-3.8b", cell)
+        cells[cell] = {k: v for k, v in rec.items() if k != "trace"}
+        log(f"dryrun phi4-mini-3.8b {cell} (16, 16):", json.dumps(cells[cell]))
         if rec["status"] != "OK":
-            raise AssertionError(f"dryrun: {rec['status']} {rec.get('error')}")
+            raise AssertionError(f"dryrun {cell}: {rec['status']} {rec.get('error')}")
+    with no_kernel_launches("dryrun", launches):
         cfg = _two_layers("phi4-mini-3.8b")
         shape = ShapeConfig("train", 512, 4, "train")
         with dryrun.fake_group(1):
@@ -3911,7 +4073,8 @@ def dryrun_phase(launches):
     log("dryrun counter on the card (phi4 widths, 2 layers, 1 x 1 mesh):", json.dumps(line))
     if got != traced:
         raise AssertionError(f"dryrun: the card's step counts {got}, the trace {traced}")
-    return {"record": rec, "counter": line}
+    free_device_memory()
+    return {"records": cells, "counter": line, "sharded_loop": sharded_loop(launches)}
 
 
 # phases that ``--phases`` may pick, for a focused run; no argument runs all

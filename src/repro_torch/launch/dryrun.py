@@ -29,12 +29,15 @@ an environment variable at import.
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-405b --shape train_4k
   python -m repro_torch.launch.dryrun --all --multi-pod both --out build/dryrun
+  python -m repro_torch.launch.dryrun --all --multi-pod both --jobs 6   # 6 processes
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
 import traceback
 from typing import Dict, Optional
@@ -327,6 +330,29 @@ def cell_id(arch: str, shape: str, multi_pod: bool) -> str:
     return f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
 
 
+def _summary(cid: str, rec: Dict) -> str:
+    if rec["status"] != "OK":
+        return f"FAIL {cid}: {rec['error'].splitlines()[0][:300]}"
+    r = rec["roofline"]
+    return (f"{rec['status']:4} {cid}: trace {rec['lower_s']}s  "
+            f"mem {rec['memory']['total_bytes']/1e9:.2f} GB/dev "
+            f"(fits={rec['fits_hbm']})  bottleneck={r['bottleneck']} "
+            f"[c={r['compute_s']:.2e} m={r['memory_s']:.2e} x={r['collective_s']:.2e}]s")
+
+
+def _trace_to(job) -> tuple:
+    """One cell ``(cid, path, arch, shape, multi_pod, smoke, device_type)``
+    traced and its record written to ``path``, in this process or in a
+    worker of ``--jobs`` (its own process, hence its own fake group);
+    returns ``(cid, path)``."""
+    cid, path, arch, shape, multi_pod, smoke, device_type = job
+    print(f"trace   {cid}", flush=True)
+    rec = run_cell(arch, shape, multi_pod=multi_pod, smoke=smoke, device_type=device_type)
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    return cid, path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -342,6 +368,8 @@ def main(argv=None):
                     help="device type of the mesh (default: cuda where a card is "
                          "present, else cpu; the shards are meta tensors either "
                          "way, so any host runs every cell)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="trace the cells in this many processes at once")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -357,7 +385,7 @@ def main(argv=None):
 
     pods = {"single": [False], "multi": [True], "both": [False, True]}[args.mp]
     os.makedirs(args.out, exist_ok=True)
-    failures = 0
+    todo = []
     for arch, shape in cells:
         for mp in pods:
             cid = cell_id(arch, shape, mp)
@@ -365,21 +393,28 @@ def main(argv=None):
             if os.path.exists(path) and not args.force:
                 print(f"cached  {cid}")
                 continue
-            rec = run_cell(arch, shape, multi_pod=mp, smoke=args.smoke,
-                           device_type=args.device)
-            with open(path, "w") as f:
-                json.dump(rec, f, indent=1)
-            ok = rec["status"] == "OK"
-            failures += 0 if ok else 1
-            if ok:
-                r = rec["roofline"]
-                print(f"{rec['status']:4} {cid}: trace {rec['lower_s']}s  "
-                      f"mem {rec['memory']['total_bytes']/1e9:.2f} GB/dev "
-                      f"(fits={rec['fits_hbm']})  bottleneck={r['bottleneck']} "
-                      f"[c={r['compute_s']:.2e} m={r['memory_s']:.2e} "
-                      f"x={r['collective_s']:.2e}]s", flush=True)
-            else:
-                print(f"FAIL {cid}: {rec['error'].splitlines()[0][:300]}", flush=True)
+            todo.append((cid, path, arch, shape, mp))
+    failures, t0 = 0, time.time()
+    jobs = [(*job, args.smoke, args.device) for job in todo]
+    if args.jobs > 1:
+        import multiprocessing
+        import signal
+
+        # a terminated run takes its workers with it (the pool's exit
+        # terminates them)
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        pool = multiprocessing.get_context("spawn").Pool(args.jobs)
+    else:
+        pool = contextlib.nullcontext()
+    with pool:
+        traced = pool.imap_unordered(_trace_to, jobs) if args.jobs > 1 else map(_trace_to, jobs)
+        for cid, path in traced:
+            with open(path) as f:
+                rec = json.load(f)
+            failures += rec["status"] != "OK"
+            print(_summary(cid, rec), flush=True)
+    print(f"{len(todo)} cell(s) in {time.time() - t0:.1f} s over {args.jobs} process(es)",
+          flush=True)
     if failures:
         raise SystemExit(f"{failures} cell(s) failed")
 

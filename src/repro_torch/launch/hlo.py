@@ -13,7 +13,9 @@ has no HLO: eager PyTorch runs every op as it is dispatched, so
   not a view: eager mode fuses nothing, so each op reads its inputs and
   writes its outputs.
 * **collective bytes** — the payload (operand bytes) of every collective,
-  by type, under the reference's names.
+  by type, under the reference's names, and by the innermost
+  ``nn.pcontext.collective_scope`` it ran in (the layers name theirs:
+  ``weights``, ``attention partials``, ``moe dispatch``).
 * **op count** — the ops that move bytes (views, allocations and detaches
   excluded): on the card, the kernels the step launches, collectives aside.
 * **live memory** — the peak of the bytes held by storages the step
@@ -38,6 +40,8 @@ from typing import Dict, Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.nn.pcontext import current_scope
 
 __all__ = ["HW", "CostCounter", "ModuleCosts", "collective_bytes", "roofline_terms",
            "parse_dtype_bytes"]
@@ -101,6 +105,8 @@ class ModuleCosts:
     peak_live_bytes: float = 0.0
     n_whiles: int = 0              # the reference's keys: no loop is opaque here
     n_unknown_trip: int = 0
+    # collective payloads by ``nn.pcontext.collective_scope`` name and type
+    collectives_by_scope: Dict[str, Dict[str, float]] = field(default_factory=dict)
 
 
 def _tensors(x):
@@ -170,8 +176,10 @@ class CostCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented        # let DTensor run; count its local ops
         out = func(*args, **kwargs)
-        if any(isinstance(t, FakeTensor) for t in _tensors((args, kwargs))):
-            return out                   # DTensor's shape propagation, not the step
+        if any(isinstance(t, FakeTensor) for t in _tensors((args, kwargs, out))):
+            # DTensor's shape propagation, not the step (its fake global
+            # tensors, made by ops with no tensor argument, too)
+            return out
         name = func._schema.name.split("::")[-1]
         coll = _COLLECTIVE_OPS.get(name)
         ins = list(_tensors((args, kwargs)))
@@ -179,6 +187,8 @@ class CostCounter(TorchDispatchMode):
         if coll is not None:
             payload = sum(_nbytes(t) for t in ins)
             self.c.collectives[coll] += payload
+            scope = self.c.collectives_by_scope.setdefault(current_scope(), {})
+            scope[coll] = scope.get(coll, 0.0) + payload
             self.c.n_collectives += 1
         elif name in _DOTS:
             self.c.flops += _dot_flops(name, args, outs[0])
@@ -204,6 +214,7 @@ def collective_bytes(costs: ModuleCosts) -> Dict[str, float]:
     out = dict(costs.collectives)
     out["total"] = costs.collective_total
     out["wire_total"] = costs.collective_wire
+    out["by_scope"] = {k: dict(v) for k, v in costs.collectives_by_scope.items()}
     return out
 
 

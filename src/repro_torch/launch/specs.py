@@ -23,8 +23,9 @@ import torch
 from repro_torch.configs.base import LM_SHAPES, ModelConfig, ShapeConfig
 from repro_torch.data import synthetic
 from repro_torch.models import lm, registry
-from repro_torch.nn.module import P, axis_sizes
-from repro_torch.tree import map_with_name
+from repro_torch.nn.module import P, axis_sizes, placements
+from repro_torch.nn.pcontext import from_block
+from repro_torch.tree import map_with_name, tree_map
 
 __all__ = [
     "input_specs",
@@ -32,6 +33,7 @@ __all__ = [
     "batch_pspecs",
     "cache_pspecs",
     "abstract_caches",
+    "sharded_caches",
     "DRYRUN_ACCUM",
     "DRYRUN_ACCUM_DTYPE",
 ]
@@ -158,6 +160,26 @@ def cache_pspecs(cfg: ModelConfig, caches_tpl, mesh):
         return P(*([None] * len(shp)))
 
     return map_with_name(leaf_spec, caches_tpl)
+
+
+def sharded_caches(cfg: ModelConfig, batch: int, max_len: int, mesh, device, dtype=None):
+    """The fresh caches of ``lm.init_caches`` as DTensors placed by
+    ``cache_pspecs`` on ``mesh`` (the reference's prefill ``out_shardings``):
+    each rank allocates only its own shards, on ``device``, filled with
+    each leaf's initial value."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    tpl = lm.init_caches(cfg, batch, max_len, dtype, device="meta")
+    # every leaf starts as one value (zeros, mLSTM's -1e30, sLSTM's 1.0)
+    first = lm.init_caches(cfg, 1, 1, dtype, device="cpu")
+
+    def one(t, spec, v):
+        pl = placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+        block = torch.full(local, v.reshape(-1)[0].item(), dtype=t.dtype, device=device)
+        return from_block(block, mesh, pl, t.shape)
+
+    return tree_map(one, tpl, cache_pspecs(cfg, tpl, mesh), first)
 
 
 def input_specs(arch: str, shape_name: str, *, smoke: bool = False,

@@ -36,7 +36,7 @@ from repro_torch.configs.base import BlockConfig, ModelConfig
 from repro_torch.models import lm
 from repro_torch.nn.attention import POOL_LEAVES, init_paged_cache
 from repro_torch.nn.module import P
-from repro_torch.nn.pcontext import is_dtensor
+from repro_torch.nn.pcontext import active, is_dtensor
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compress import compressed_psum
@@ -50,6 +50,7 @@ __all__ = [
     "optimizer_pspecs",
     "make_prefill_step",
     "make_decode_step",
+    "static_loop",
     "pageable_block",
     "init_serving_caches",
     "make_slot_prefill_step",
@@ -274,11 +275,20 @@ def make_prefill_step(cfg: ModelConfig, max_len: int) -> Callable:
     caches of ``max_len`` rows (scalar ``pos``; a ring of exactly ``window``
     rows for a windowed layer) filled by one forward over
     ``batch["tokens"]`` ([B,S] or [B,K,S]), with the vision stub's
-    ``patch_embeds`` and ``pos3d`` when the batch carries them."""
+    ``patch_embeds`` and ``pos3d`` when the batch carries them.  On DTensor
+    tokens inside ``logical_sharding`` the fresh caches are DTensors placed
+    by ``launch/specs.py cache_pspecs`` (the reference's ``out_shardings``),
+    and each rank writes its own rows of them."""
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        caches = lm.init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
+        if is_dtensor(tokens) and active() is not None:
+            from repro_torch.launch.specs import sharded_caches
+
+            caches = sharded_caches(cfg, tokens.shape[0], max_len, active()[0],
+                                    tokens.to_local().device)
+        else:
+            caches = lm.init_caches(cfg, tokens.shape[0], max_len, device=tokens.device)
         logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
                                        patch_embeds=batch.get("patch_embeds"),
                                        pos3d=batch.get("pos3d"))
@@ -300,8 +310,16 @@ def _cache_start(caches):
 
 def _argmax_tokens(logits):
     """Greedy next tokens from the last row of ``logits``: [B, 1] int32, or
-    [B, K, 1] from multi-codebook logits [B, S, K, V]."""
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[..., None]
+    [B, K, 1] from multi-codebook logits [B, S, K, V].  A DTensor's rows
+    are made whole but for the batch first, so the argmax runs on each
+    rank's own rows."""
+    last = logits[:, -1]
+    if is_dtensor(last):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = last.redistribute(last.device_mesh, tuple(
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in last.placements))
+    return torch.argmax(last, dim=-1).to(torch.int32)[..., None]
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
@@ -314,14 +332,68 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     caches that hold the paged pool."""
 
     def decode_step(params, caches, tokens, tables=None):
-        start = _cache_start(caches)
-        if start is not None and start.ndim:
-            start = start[:, None]
-        logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
-                                       start_pos=start, tables=tables)
+        logits, caches = _static_decode_forward(cfg, params, caches, tokens, tables)
         return _argmax_tokens(logits), caches
 
     return decode_step
+
+
+def _static_decode_forward(cfg: ModelConfig, params, caches, tokens, tables=None):
+    """The decode step's forward: (logits, caches), the query at the
+    caches' position."""
+    start = _cache_start(caches)
+    if start is not None and start.ndim:
+        start = start[:, None]
+    logits, caches, _ = lm.forward(params, tokens, cfg, caches=caches,
+                                   start_pos=start, tables=tables)
+    return logits, caches
+
+
+def static_loop(cfg: ModelConfig, params, tokens, gen: int, max_len: int, mesh=None):
+    """The static loop with its logits: ``make_prefill_step`` over
+    ``tokens`` ([B, S] or [B, K, S]), then ``gen`` greedy decode steps.
+    Returns (prefill logits, each decode step's last logits stacked ``[gen,
+    B, ...]``, tokens ``[B, gen + 1]`` (``[B, K, gen + 1]``), caches), the
+    logits and tokens whole.  With a ``mesh`` the params are placed by
+    ``launch/mesh.py param_pspecs`` and the tokens on ``data``; the prefill
+    runs under the prefill rules (the caches placed by ``cache_pspecs``),
+    the decode steps under the decode rules (a flash decode over each
+    rank's cache rows), and the caches come back placed."""
+    ctx = lambda kind: contextlib.nullcontext()
+    put = lambda t, ps: t
+    if mesh is not None:
+        from torch.distributed.tensor import distribute_tensor
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.launch.mesh import param_pspecs, sharding_rules
+        from repro_torch.nn.module import placements
+        from repro_torch.nn.pcontext import logical_sharding
+
+        put = lambda t, ps: distribute_tensor(t, mesh, placements(ps, mesh), src_data_rank=None)
+        params = tree_map(put, params, param_pspecs(lm.param_spec(cfg),
+                                                    sharding_rules(mesh, "prefill"), mesh))
+
+        @contextlib.contextmanager
+        def ctx(kind):
+            with logical_sharding(mesh, sharding_rules(mesh, kind)), implicit_replication():
+                yield
+
+    whole = lambda t: t.full_tensor() if is_dtensor(t) else t
+    with torch.no_grad():
+        with ctx("prefill"):
+            last, caches = make_prefill_step(cfg, max_len)(
+                params, {"tokens": put(tokens, P(("data",)))})
+        last = whole(last)
+        tok = torch.argmax(last, dim=-1).to(torch.int32)[..., None]
+        toks, seen = [tok], []
+        tok = put(tok, P(("data",)))
+        for _ in range(gen):
+            with ctx("decode"):
+                logits, caches = _static_decode_forward(cfg, params, caches, tok)
+                tok = _argmax_tokens(logits)
+            seen.append(whole(logits[:, -1]))
+            toks.append(whole(tok))
+    return last, torch.stack(seen), torch.cat(toks, dim=-1), caches
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from repro_torch.nn.attention import POOL_LEAVES
 from repro_torch.nn.blocks import block_apply, block_cache, block_spec
 from repro_torch.nn.layers import embed, embed_spec, linear, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec, count_params
-from repro_torch.nn.pcontext import active, constrain, is_dtensor
+from repro_torch.nn.pcontext import active, collective_scope, constrain, is_dtensor
 from repro_torch.tree import leaves_with_path, tree_map
 
 __all__ = ["param_spec", "forward", "init_caches", "kv_dtype", "loss_fn", "model_flops"]
@@ -197,8 +197,9 @@ def forward(params, tokens, cfg: ModelConfig, caches=None, patch_embeds=None,
             if active():
                 # pin each per-layer param slice to its logical sharding, as
                 # the reference pins its scan's slices
-                p_l = tree_map(lambda w, s: constrain(w, s.logical_axes), p_l,
-                               block_spec(bcfg, cfg.d_model))
+                with collective_scope("weights"):
+                    p_l = tree_map(lambda w, s: constrain(w, s.logical_axes), p_l,
+                                   block_spec(bcfg, cfg.d_model))
             y, c2 = block_apply(p_l, x, bcfg, cache=c_l, positions=positions,
                                 odin=odin, norm_eps=cfg.norm_eps,
                                 moe_no_drop=moe_no_drop, tables=tables,

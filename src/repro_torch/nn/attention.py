@@ -29,6 +29,13 @@ rows: the serving steps merge each slot's old and new cache by its activity
 mask, which needs both.  GQA rotates q and k with RoPE or, for Qwen2-VL,
 M-RoPE over (t, h, w) position ids (``pos3d``; without them every axis
 takes the token's position).
+
+On DTensors (a sharded run, the dry-run) a dense or MLA cache placed by
+``launch/specs.py cache_pspecs`` (batch on ``data``, rows on ``model``) is
+written rank by rank, each rank its own rows (``_put_rows_sharded``), and a
+decode step attends as a flash decode: each rank over its own rows, the
+softmax partials combined by all-reduces (``_flash_decode``); longer query
+tiles run each rank's (batch, head) block (``_sharded_sdpa``).
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.nn.layers import apply_mrope, apply_rope, linear, linear_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
-from repro_torch.nn.pcontext import contiguous_grad, is_dtensor, reshape
+from repro_torch.nn.pcontext import (collective_scope, contiguous_grad, from_block,
+                                     is_dtensor, reshape, to_block)
 
 __all__ = ["attn_spec", "attention", "init_cache", "init_paged_cache", "sdpa",
            "DEFAULT_CHUNK", "KV_SCALE", "POOL_LEAVES"]
@@ -219,8 +227,18 @@ def _sharded_sdpa(q, k, v, q_pos, k_pos, window, chunk, blockwise_threshold):
     """``sdpa`` of DTensor q/k/v, each rank on its own (batch, head) block:
     batch sharded as ``q``'s is, heads over the other mesh dims that divide
     the KV heads (a query head's KV head then lives on the same rank), the
-    sequence whole.  The local result is this rank's block of the output."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sequence whole.  The local result is this rank's block of the output.
+    A long block attends in chunks as large as the direct path's bound
+    (``blockwise_threshold`` rows), not the caller's ``chunk``: a 32k-token
+    prefill takes 64 eager chunk pairs a layer, where chunks of 512 would
+    take 4,096 (each a dozen ops: kernel launches on the card, and Python
+    dispatch when the dry-run traces the step on meta tensors).  The price
+    is float32 scores of ``blockwise_threshold``² a local head, 64× those
+    of the 512-row blocks one device keeps, and the dry-run's prefill
+    memory records carry it.  The online softmax then runs in another
+    block order than one device's, so the two agree within float32's
+    reordered sums, not bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     mesh = q.device_mesh
@@ -244,17 +262,99 @@ def _sharded_sdpa(q, k, v, q_pos, k_pos, window, chunk, blockwise_threshold):
     batch_pl = tuple(Shard(0) if i in batch_dims else Replicate() for i in range(mesh.ndim))
     qp = _rows(q_pos, mesh, batch_pl, off[0], ql.shape[0])
     kp = _rows(k_pos, mesh, batch_pl, off[0], ql.shape[0])
-    out = contiguous_grad(sdpa(ql, kl, vl, qp, kp, window, chunk, blockwise_threshold))
-    shape = torch.Size((B, Sq, H, v.shape[-1]))
-    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+    out = contiguous_grad(sdpa(ql, kl, vl, qp, kp, window, max(chunk, blockwise_threshold),
+                               blockwise_threshold))
+    return from_block(out, mesh, pl, (B, Sq, H, v.shape[-1]))
+
+
+def _seq_dims(k):
+    """The mesh dims that shard DTensor ``k``'s sequence axis (axis 1)."""
+    from torch.distributed.tensor import Shard
+
+    return [i for i, p in enumerate(k.placements) if isinstance(p, Shard) and p.dim == 1]
+
+
+def _whole(x):
+    """A replicated DTensor's value (every rank holds it), a plain tensor as
+    it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _decode_partials(q, k, v, q_pos, k_pos, window: int, scale: float):
+    """One rank's flash-decode partials over its own key rows: q ``[B, H,
+    D]`` (one query row), k/v ``[B, Sk, Hkv, D/Dv]``, positions ``[B]`` and
+    ``[B, Sk]``.  Returns the row max ``m [B, H]``, the denominator ``l [B,
+    H]`` and the numerator ``o [B, H, Dv]``, float32, relative to ``m``."""
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) * scale
+    s = s + _mask_bias(q_pos[:, None], k_pos, window)[:, None, None, 0, :]
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return m.reshape(B, H), p.sum(-1).reshape(B, H), o.reshape(B, H, v.shape[-1])
+
+
+def _flash_combine(m, l, o, mesh, out_pl, seq_dims, B: int):
+    """Combine the ranks' flash-decode partials over the mesh dims
+    ``seq_dims`` that shard the keys: a MAX all-reduce of the row max, then
+    SUM all-reduces of the rescaled denominator and numerator.  A rank
+    whose keys are all invisible has a row max near -1e30 and is rescaled
+    by exactly 0.  Returns this rank's ``[B_local, H, Dv]`` output."""
+    from torch.distributed.tensor import Partial
+
+    def reduce(t, op):
+        part = tuple(Partial(op) if i in seq_dims else p for i, p in enumerate(out_pl))
+        return from_block(t, mesh, part, (B, *t.shape[1:])).redistribute(
+            mesh, out_pl).to_local()
+
+    with collective_scope("attention partials"):
+        m_all = reduce(m, "max")
+        w = torch.exp(m - m_all)
+        l_all = reduce(l * w, "sum")
+        o_all = reduce(o * w[..., None], "sum")
+    return o_all / l_all[..., None]
+
+
+def _flash_decode(q, k, v, q_pos, k_pos, window: int, kv_local=None):
+    """One query row against keys sequence-sharded over the mesh (the
+    decode cache's ``kv_seq → model``): each rank attends over its own key
+    rows and the partials are combined (:func:`_flash_combine`); no rank
+    gathers the cache.  q ``[B, 1, H, D]``; k/v DTensors ``[B, Sk, Hkv,
+    D/Dv]`` — or, with ``kv_local(k_block) → (k, v)``, the rows from which
+    each rank makes its own keys and values (MLA's latents).  The output is
+    ``[B, 1, H, Dv]``, batch sharded as the keys' is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = k.device_mesh
+    B, _, H, D = q.shape
+    seq_dims = _seq_dims(k)
+    kv_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+                  for p in k.placements)
+    out_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in k.placements)
+    if kv_local is None:
+        kl, vl = to_block(k, mesh, kv_pl), to_block(v, mesh, kv_pl)
+    else:
+        kl, vl = kv_local(to_block(k, mesh, kv_pl))
+    ql = to_block(q, mesh, out_pl, kv_pl)[:, 0]
+    kp = to_block(_whole(k_pos).expand(B, k.shape[1]), mesh, kv_pl)
+    qp = to_block(_whole(q_pos).expand(B, 1), mesh, out_pl)[:, 0]
+    m, l, o = _decode_partials(ql, kl, vl, qp, kp, window, 1.0 / math.sqrt(D))
+    out = _flash_combine(m, l, o, mesh, out_pl, seq_dims, B).to(q.dtype)
+    return from_block(out[:, None], mesh, out_pl, (B, 1, H, out.shape[-1]))
 
 
 def sdpa(q, k, v, q_pos, k_pos, window: int = 0, chunk: int = DEFAULT_CHUNK,
          blockwise_threshold: int = 4096):
     """Dispatch between direct and blockwise attention. Shapes as in _sdpa.
-    DTensor q/k/v run per rank on local blocks (``_sharded_sdpa``)."""
+    DTensor q/k/v run per rank on local blocks: one query row against
+    sequence-sharded keys as a flash decode (``_flash_decode``), anything
+    else on (batch, head) blocks (``_sharded_sdpa``)."""
     if is_dtensor(q):
+        if q.shape[1] == 1 and _seq_dims(k):
+            return _flash_decode(q, k, v, q_pos, k_pos, window)
         return _sharded_sdpa(q, k, v, q_pos, k_pos, window, chunk, blockwise_threshold)
     scale = 1.0 / math.sqrt(q.shape[-1])
     B = q.shape[0]
@@ -379,11 +479,35 @@ def _ring_positions(next_pos, size: int):
     return torch.where(slots < next_pos, wrapped, 2**30).to(torch.int32)
 
 
+def _put_rows_sharded(cache, dst, new):
+    """``_put_rows`` on a DTensor cache placed by ``launch/specs.py
+    cache_pspecs`` (batch and rows sharded): each rank writes the rows of
+    its own shard — the batch rows of its batch shard and, of those, the
+    cache rows in ``[offset, offset + local)`` of its row shard; any other
+    ``dst`` (below the offset too) is dropped on that rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    local, off = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    rows = to_block(new, mesh, tuple(Replicate() if isinstance(p, Shard) and p.dim == 1
+                                     else p for p in pl))
+    d = _whole(dst)
+    if d.shape[0] > 1:
+        d = d[off[0]:off[0] + local[0]]
+    d = d.long() - off[1]
+    d = torch.where((d >= 0) & (d < local[1]), d, local[1])
+    return from_block(_put_rows(cache.to_local(), d, rows), mesh, pl, cache.shape)
+
+
 def _put_rows(cache, dst, new):
     """``cache [B, size, ...]`` with row ``dst[b, j]`` of slot ``b`` set to
     ``new[b, j]``, out of place.  A ``dst`` at or past ``size`` is dropped,
     as JAX drops an out-of-bounds scatter: each such row lands in a pad row
-    of its own, cut off again."""
+    of its own, cut off again.  A DTensor cache is written rank by rank
+    (``_put_rows_sharded``)."""
+    if is_dtensor(cache):
+        return _put_rows_sharded(cache, dst, new)
     B, size = cache.shape[0], cache.shape[1]
     S = dst.shape[-1]
     out = torch.cat([cache, cache.new_zeros((B, S, *cache.shape[2:]))], dim=1)
@@ -493,12 +617,40 @@ def mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg: AttnConfig,
     not, and is a speed-up the reference lacks.  Returns ``[B, S, H,
     v_head_dim]``."""
     B, H = q_nope.shape[0], cfg.n_heads
+    if is_dtensor(q_nope) and q_nope.shape[1] == 1 and _seq_dims(c_kv):
+        return _mla_flash_decode(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, k_pos, odin)
     k_nope = reshape(linear(c_kv, p["k_up"], odin), B, -1, H, cfg.qk_nope_dim)
     v = reshape(linear(c_kv, p["v_up"], odin), B, -1, H, cfg.v_head_dim)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     return sdpa(q, k, v, positions, k_pos, cfg.window)
+
+
+def _mla_flash_decode(p, q_nope, q_rope, c_kv, k_rope, cfg: AttnConfig, positions, k_pos,
+                      odin=None):
+    """MLA's decode over a sequence-sharded latent cache: each rank
+    decompresses its own latent rows (``k_up``/``v_up`` gathered whole, the
+    weights' collectives) and attends over them; the partials are combined
+    as ``_flash_decode`` combines them."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = c_kv.device_mesh
+    H = cfg.n_heads
+    whole = lambda w: to_block(w, mesh, (Replicate(),) * mesh.ndim, c_kv.placements)
+    with collective_scope("weights"):
+        k_up, v_up = whole(p["k_up"]), whole(p["v_up"])
+    kr = to_block(k_rope, mesh, tuple(c_kv.placements))
+
+    def kv_local(c):
+        Bl, Sl = c.shape[0], c.shape[1]
+        k_nope = linear(c, k_up, odin).reshape(Bl, Sl, H, cfg.qk_nope_dim)
+        v = linear(c, v_up, odin).reshape(Bl, Sl, H, cfg.v_head_dim)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(Bl, Sl, H, cfg.qk_rope_dim)], dim=-1)
+        return k, v
+
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return _flash_decode(q, c_kv, None, positions, k_pos, cfg.window, kv_local=kv_local)
 
 
 def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.odin_linear import OdinConfig, odin_linear
 from repro_torch.nn.module import ParamSpec
-from repro_torch.nn.pcontext import is_dtensor
+from repro_torch.nn.pcontext import collective_scope, is_dtensor
 
 __all__ = [
     "linear_spec", "linear", "norm_spec", "rmsnorm", "layernorm",
@@ -36,7 +36,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, odin: Optional[OdinConfig] = None,
     excursion fixed per seed.
     """
     if is_dtensor(x) and x.dim() > 2:
-        return _InnerGatheredGrad.apply(_linear(_gather_inner(x), w, odin, drift_step))
+        x = _gather_inner(x)
+        with collective_scope("weights"):      # the product gathers its weight's shards
+            return _InnerGatheredGrad.apply(_linear(x, w, odin, drift_step))
     return _linear(x, w, odin, drift_step)
 
 
@@ -107,7 +109,9 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         # compares its mask by value, which meta shards cannot
         from torch.distributed.tensor import Replicate
 
-        whole = table.redistribute(table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+        with collective_scope("weights"):
+            whole = table.redistribute(table.device_mesh,
+                                       [Replicate()] * table.device_mesh.ndim)
         return F.embedding(tokens.long(), whole)
     return table[tokens.long()]
 

@@ -21,7 +21,8 @@ import torch
 from repro_torch.nn.module import axis_sizes, logical_to_pspec, placements
 
 __all__ = ["logical_sharding", "constrain", "active", "is_dtensor", "reshape",
-           "contiguous_grad"]
+           "contiguous_grad", "rule_placements", "block_placements", "to_block", "from_block",
+           "collective_scope", "current_scope"]
 
 _ACTIVE: list = []
 
@@ -35,6 +36,25 @@ def logical_sharding(mesh, rules: Dict[str, object]):
         yield
     finally:
         _ACTIVE.pop()
+
+
+_SCOPE: list = []
+
+
+@contextlib.contextmanager
+def collective_scope(name: str):
+    """Name the collectives run inside the block (``launch/hlo.py
+    CostCounter`` tallies their payloads under the innermost name)."""
+    _SCOPE.append(name)
+    try:
+        yield
+    finally:
+        _SCOPE.pop()
+
+
+def current_scope() -> str:
+    """The innermost ``collective_scope`` name, or ``"other"``."""
+    return _SCOPE[-1] if _SCOPE else "other"
 
 
 def active():
@@ -60,6 +80,16 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.T
     (DTensor would shard it unevenly; the reference's partitioner pads)."""
     if not _ACTIVE or not is_dtensor(x):
         return x
+    mesh = _ACTIVE[-1][0]
+    want = rule_placements(x.shape, logical_axes)
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, want)
+
+
+def rule_placements(shape, logical_axes: Sequence[Optional[str]]):
+    """The DTensor placements that ``constrain`` gives a tensor of ``shape``
+    under the active rules (a dim its mesh axes do not divide unsharded)."""
     mesh, rules = _ACTIVE[-1]
     spec = list(logical_to_pspec(tuple(logical_axes), rules))
     sizes = axis_sizes(mesh)
@@ -70,12 +100,72 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]) -> torch.T
         n = 1
         for a in axes:
             n *= sizes[a]
-        if x.shape[d] % n:
+        if shape[d] % n:
             spec[d] = None
-    want = placements(spec, mesh)
-    if tuple(want) == tuple(x.placements):
-        return x
-    return x.redistribute(mesh, want)
+    return placements(spec, mesh)
+
+
+def block_placements(x, n_channels: int, chan_dim: Optional[int], batch: bool = True):
+    """Placements of a per-rank block for a recurrence or a decode over
+    DTensor ``x [B, ...]`` (the block's input): the batch axis 0 sharded as
+    ``x``'s is (none with ``batch=False``), axis ``chan_dim`` (heads or
+    channels, ``n_channels`` of them) over the mesh's ``model`` axis where
+    that divides them, every other axis whole.  A recurrence is local in
+    batch and channel, so each rank runs its block with no collective."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names or ())
+    out = []
+    for i, p in enumerate(x.placements):
+        if batch and isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        elif (chan_dim is not None and i < len(names) and names[i] == "model"
+              and n_channels % mesh.size(i) == 0):
+            out.append(Shard(chan_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def to_block(x: torch.Tensor, mesh, pl, work=None) -> torch.Tensor:
+    """This rank's local block of ``x`` under placements ``pl``: a DTensor
+    is redistributed and unwrapped, a plain tensor, replicated by
+    implication, is sliced.  ``work``: the placements of the computation the
+    block enters (those of its batch- and channel-split tensors); on a mesh
+    dim that splits the work but replicates ``x`` (a weight without a batch
+    axis, a tensor without a channel axis) each rank's gradient is a
+    partial sum.  The gradient comes back contiguous."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        grad = tuple(Partial() if work is not None and isinstance(w, Shard)
+                     and isinstance(p, Replicate) else p for p, w in zip(pl, work or pl))
+        return contiguous_grad(x.redistribute(mesh, pl).to_local(grad_placements=grad))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, off = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+    return x[tuple(slice(o, o + n) for o, n in zip(off, local))]
+
+
+def from_block(local: torch.Tensor, mesh, pl, shape) -> torch.Tensor:
+    """A DTensor of global ``shape`` whose local block under placements
+    ``pl`` is ``local`` (made contiguous, as DTensor's view rules assume)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``, computed without
+    making one (a meta tensor of a global shape would count as live memory
+    under a cost counter)."""
+    stride, step = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(stride))
 
 
 def _local_contiguous(x):

@@ -13,7 +13,8 @@ back to the activation dtype before the gate.  The scan is a plain time
 loop (:func:`repro_torch.nn.scan_utils.chunked_scan`): about six eager
 operations a token, as the JAX package runs jnp there.  The carry is pinned
 to batch × mlp sharding as in the reference (``nn.pcontext.constrain``, the
-identity outside a ``logical_sharding`` context and on plain tensors).
+identity outside a ``logical_sharding`` context and on plain tensors); on
+DTensors each rank scans its own (batch, channel) block.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.layers import linear, linear_spec
 from repro_torch.nn.module import ParamSpec
-from repro_torch.nn.pcontext import constrain
+from repro_torch.nn.pcontext import block_placements, constrain, from_block, is_dtensor, to_block
 from repro_torch.nn.scan_utils import chunked_scan
 
 __all__ = ["ssm_spec", "ssm_block", "init_ssm_state"]
@@ -79,6 +80,22 @@ def _selective_scan(u, dt, A, Bc, Cc, D, h0):
     return y, h
 
 
+def _sharded_scan(x, u, dt, A, Bc, Cc, D, h0):
+    """``_selective_scan`` of DTensors, each rank on its own (batch,
+    channel) block: the recurrence is local in both, so no collective runs
+    inside it (``x`` is the block's input, whose batch sharding the blocks
+    keep)."""
+    mesh, di = x.device_mesh, u.shape[-1]
+    pl_seq, pl_h = block_placements(x, di, 2), block_placements(x, di, 1)
+    pl_bc = block_placements(x, di, None)
+    pl_ch = block_placements(x, di, 0, batch=False)
+    y, h = _selective_scan(to_block(u, mesh, pl_seq), to_block(dt, mesh, pl_seq),
+                           to_block(A, mesh, pl_ch, pl_seq), to_block(Bc, mesh, pl_bc, pl_seq),
+                           to_block(Cc, mesh, pl_bc, pl_seq), to_block(D, mesh, pl_ch, pl_seq),
+                           to_block(h0, mesh, pl_h))
+    return from_block(y, mesh, pl_seq, u.shape), from_block(h, mesh, pl_h, h0.shape)
+
+
 def ssm_block(p, x: torch.Tensor, cfg: SSMConfig, state=None,
               odin: Optional[OdinConfig] = None):
     """x: [B,S,d] → (y [B,S,d], new_state).  ``state`` (``h``, ``conv``)
@@ -109,7 +126,10 @@ def ssm_block(p, x: torch.Tensor, cfg: SSMConfig, state=None,
     h0 = (state["h"] if state is not None
           else torch.zeros((B, d_inner, N), dtype=torch.float32, device=x.device))
     h0 = constrain(h0, ("batch", "mlp", None))   # pin batch/TP sharding of the carry
-    y, h = _selective_scan(u.float(), dt, A, Bc, Cc, p["D"], h0)
+    if is_dtensor(x):
+        y, h = _sharded_scan(x, u.float(), dt, A, Bc, Cc, p["D"], h0)
+    else:
+        y, h = _selective_scan(u.float(), dt, A, Bc, Cc, p["D"], h0)
     y = y.to(x.dtype) * F.silu(z)
     out = linear(y, p["out_proj"], odin)
     new_state = None

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch.core.odin_linear import OdinConfig
 from repro_torch.nn.layers import linear, linear_spec, norm_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
-from repro_torch.nn.pcontext import active, constrain
+from repro_torch.nn.pcontext import (active, block_placements, constrain, from_block,
+                                     is_dtensor, reshape, to_block)
 from repro_torch.nn.scan_utils import chunked_scan
 
 __all__ = ["mlstm_spec", "mlstm_block", "slstm_spec", "slstm_block", "init_mlstm_state",
@@ -64,46 +65,65 @@ def mlstm_block(p, x: torch.Tensor, n_heads: int, state=None,
                 chunk: int = 512):
     """x: [B,S,d] → (out [B,S,d], new_state or None).  ``impl``: 'scan'
     (token-sequential) or 'chunkwise' (the telescoped per-chunk form, run
-    when S > 1; the same math in another summation order)."""
+    when S > 1; the same math in another summation order).  On a DTensor
+    ``x`` each rank runs the recurrence on its own (batch, head) block."""
     B, S, d = x.shape
     dh = d // n_heads
-    q = linear(x, p["q"], odin).reshape(B, S, n_heads, dh).float()
-    k = linear(x, p["k"], odin).reshape(B, S, n_heads, dh).float() / math.sqrt(dh)
-    v = linear(x, p["v"], odin).reshape(B, S, n_heads, dh).float()
-    gates = linear(x, p["gates"], odin).float().reshape(B, S, n_heads, 2)
+    q = reshape(linear(x, p["q"], odin), B, S, n_heads, dh).float()
+    k = reshape(linear(x, p["k"], odin), B, S, n_heads, dh).float() / math.sqrt(dh)
+    v = reshape(linear(x, p["v"], odin), B, S, n_heads, dh).float()
+    gates = reshape(linear(x, p["gates"], odin).float(), B, S, n_heads, 2)
     i_pre, f_pre = gates[..., 0], gates[..., 1]                  # [B,S,H]
     o_gate = torch.sigmoid(linear(x, p["o_gate"], odin).float())
 
-    st = state if state is not None else init_mlstm_state(n_heads, d, B, x.device)
-    if active():      # pin batch sharding of the matrix-memory carry
+    st = state
+    if st is not None and active():      # pin batch sharding of the matrix-memory carry
         st = {k: constrain(v, ("batch",) + (None,) * (v.dim() - 1)) for k, v in st.items()}
-    if impl == "chunkwise" and S > 1:
-        (C, n, m), ys = _mlstm_chunkwise(q, k, v, i_pre, f_pre,
-                                         (st["C"], st["n"], st["m"]), chunk)
-        h = ys.reshape(B, S, d).to(x.dtype) * o_gate.to(x.dtype)
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        pl_seq, pl_st = block_placements(x, n_heads, 2), block_placements(x, n_heads, 1)
+        ql, kl, vl, il, fl = (to_block(t, mesh, pl_seq) for t in (q, k, v, i_pre, f_pre))
+        st_l = (init_mlstm_state(ql.shape[2], ql.shape[2] * dh, ql.shape[0], ql.device)
+                if st is None else {k: to_block(v, mesh, pl_st) for k, v in st.items()})
+        (C, n, m), ys = _mlstm_core(ql, kl, vl, il, fl, st_l, impl, chunk)
+        ys = from_block(ys, mesh, pl_seq, (B, S, n_heads, dh))
+        C, n, m = (from_block(a, mesh, pl_st, (B, n_heads, *a.shape[2:]))
+                   for a in (C, n, m))
     else:
-        def step(carry, inp):
-            C, n, m = carry
-            qt, kt, vt, it, ft = inp                             # [B,H,dh], [B,H]
-            log_f = F.logsigmoid(ft)                             # log σ(f)
-            m_new = torch.maximum(log_f + m, it)
-            i_sc = torch.exp(it - m_new)
-            f_sc = torch.exp(log_f + m - m_new)
-            C = (f_sc[..., None, None] * C
-                 + i_sc[..., None, None] * (kt[..., :, None] * vt[..., None, :]))
-            n = f_sc[..., None] * n + i_sc[..., None] * kt
-            num = torch.einsum("bhkv,bhk->bhv", C, qt)
-            den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qt)),
-                                torch.exp(-m_new))
-            return (C, n, m_new), num / den[..., None]
-
-        (C, n, m), ys = chunked_scan(
-            step, (st["C"], st["n"], st["m"]),
-            [t.transpose(0, 1) for t in (q, k, v, i_pre, f_pre)], chunk=256)
-        h = ys.transpose(0, 1).reshape(B, S, d).to(x.dtype) * o_gate.to(x.dtype)
+        if st is None:
+            st = init_mlstm_state(n_heads, d, B, x.device)
+        (C, n, m), ys = _mlstm_core(q, k, v, i_pre, f_pre, st, impl, chunk)
+    h = reshape(ys, B, S, d).to(x.dtype) * o_gate.to(x.dtype)
     out = linear(rmsnorm(h, p["out_norm"]), p["out"], odin)
     new_state = {"C": C, "n": n, "m": m} if state is not None else None
     return out, new_state
+
+
+def _mlstm_core(q, k, v, i_pre, f_pre, st, impl: str, chunk: int):
+    """The mLSTM recurrence over the sequence: ((C, n, m), h [B,S,H,dh]),
+    the chunkwise form when S > 1 and ``impl`` asks for it, else the token
+    scan."""
+    if impl == "chunkwise" and q.shape[1] > 1:
+        return _mlstm_chunkwise(q, k, v, i_pre, f_pre, (st["C"], st["n"], st["m"]), chunk)
+
+    def step(carry, inp):
+        C, n, m = carry
+        qt, kt, vt, it, ft = inp                             # [B,H,dh], [B,H]
+        log_f = F.logsigmoid(ft)                             # log σ(f)
+        m_new = torch.maximum(log_f + m, it)
+        i_sc = torch.exp(it - m_new)
+        f_sc = torch.exp(log_f + m - m_new)
+        C = (f_sc[..., None, None] * C
+             + i_sc[..., None, None] * (kt[..., :, None] * vt[..., None, :]))
+        n = f_sc[..., None] * n + i_sc[..., None] * kt
+        num = torch.einsum("bhkv,bhk->bhv", C, qt)
+        den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qt)),
+                            torch.exp(-m_new))
+        return (C, n, m_new), num / den[..., None]
+
+    carry, ys = chunked_scan(step, (st["C"], st["n"], st["m"]),
+                             [t.transpose(0, 1) for t in (q, k, v, i_pre, f_pre)], chunk=256)
+    return carry, ys.transpose(0, 1)
 
 
 def _mlstm_chunkwise(q, k, v, i_pre, f_pre, st0, chunk: int):
@@ -185,13 +205,36 @@ def init_slstm_state(d_model: int, batch: int, device=None):
 
 def slstm_block(p, x: torch.Tensor, state=None, odin: Optional[OdinConfig] = None):
     """Scalar-memory LSTM with exponential gating and a diagonal recurrent
-    h-feedback.  x: [B,S,d] → (out [B,S,d], new_state or None)."""
+    h-feedback.  x: [B,S,d] → (out [B,S,d], new_state or None).  On a
+    DTensor ``x`` each rank runs the recurrence on its own (batch, channel)
+    block."""
     B, S, d = x.shape
-    pre = linear(x, p["zifo"], odin).float().reshape(B, S, 4, d)
-    st = state if state is not None else init_slstm_state(d, B, x.device)
-    if active():
+    pre = reshape(linear(x, p["zifo"], odin).float(), B, S, 4, d)
+    st = state
+    if st is not None and active():
         st = {k: constrain(v, ("batch",) + (None,) * (v.dim() - 1)) for k, v in st.items()}
-    r = p["r_zifo"]                                              # [4, d]
+    if is_dtensor(x):
+        mesh = x.device_mesh
+        pl_pre, pl_st = block_placements(x, d, 3), block_placements(x, d, 1)
+        pre_l = to_block(pre, mesh, pl_pre)
+        r = to_block(p["r_zifo"], mesh, block_placements(x, d, 1, batch=False), pl_pre)
+        st_l = (init_slstm_state(pre_l.shape[3], pre_l.shape[0], pre_l.device) if st is None
+                else {k: to_block(v, mesh, pl_st) for k, v in st.items()})
+        (c, n, h, m), y = _slstm_core(pre_l, r, st_l)
+        y = from_block(y, mesh, block_placements(x, d, 2), (B, S, d))
+        c, n, h, m = (from_block(a, mesh, pl_st, (B, d)) for a in (c, n, h, m))
+    else:
+        if st is None:
+            st = init_slstm_state(d, B, x.device)
+        (c, n, h, m), y = _slstm_core(pre, p["r_zifo"], st)
+    out = linear(rmsnorm(y.to(x.dtype), p["out_norm"]), p["out"], odin)
+    new_state = {"c": c, "n": n, "h": h, "m": m} if state is not None else None
+    return out, new_state
+
+
+def _slstm_core(pre, r, st):
+    """The sLSTM recurrence over ``pre [B,S,4,d]`` with ``r [4, d]``:
+    ((c, n, h, m), y [B,S,d])."""
 
     def step(carry, inp):
         c, n, h, m = carry
@@ -208,9 +251,6 @@ def slstm_block(p, x: torch.Tensor, state=None, odin: Optional[OdinConfig] = Non
         h_new = ot * c / torch.clamp_min(n, 1e-6)
         return (c, n, h_new, m_new), h_new
 
-    (c, n, h, m), ys = chunked_scan(step, (st["c"], st["n"], st["h"], st["m"]),
-                                    [pre.transpose(0, 1)], chunk=256)
-    y = ys.transpose(0, 1).to(x.dtype)
-    out = linear(rmsnorm(y, p["out_norm"]), p["out"], odin)
-    new_state = {"c": c, "n": n, "h": h, "m": m} if state is not None else None
-    return out, new_state
+    carry, ys = chunked_scan(step, (st["c"], st["n"], st["h"], st["m"]),
+                             [pre.transpose(0, 1)], chunk=256)
+    return carry, ys.transpose(0, 1)

@@ -219,47 +219,38 @@ def _local(x):
 def _sharded_leaf_(g, p, mu, nu, lr, c1, c2, cfg: AdamWConfig):
     """``_update_leaf_`` on the local shards of DTensor ``g``, ``p`` and
     moments placed as ``launch.steps.optimizer_pspecs`` places them: ``q``
-    as ``p``, an int8 moment's scales ``s`` as ``p`` but with the trailing
-    axis whole.  Every operation is elementwise or blockwise along the
-    trailing axis, so each rank updates its own shard — unless the int8
-    codec's blocks straddle the shards of a sharded trailing axis, and then
-    the leaf is gathered along that axis first and its shard written back.
-    A trailing-axis shard's new scales are all-gathered into every rank's
-    whole-axis ``s``."""
+    as ``p``, an int8 moment's scales ``s`` as ``p`` but for the trailing
+    axis — and, as in the reference, for any leading axis whose spec entry
+    ``param_pspecs`` left implicit.  Every operation is elementwise or
+    blockwise along the trailing axis, so each rank updates one block of
+    the leaf: ``p``'s own shard, with the scales of its rows and blocks —
+    or, where a shard boundary of the trailing axis cuts a codec block (a
+    shard that is not a whole number of blocks, or less than one), that
+    shard with its trailing axis gathered.  A moment leaf stored in other
+    placements than the block's is written back from the block."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     if not isinstance(p, DTensor):
         return _update_leaf_(g, p, mu, nu, lr, c1, c2, cfg)
     mesh, place = p.device_mesh, tuple(p.placements)
-    g = g.redistribute(mesh, place)
     last = p.dim() - 1
-    trailing = [i for i, pl in enumerate(place) if isinstance(pl, Shard) and pl.dim == last]
-    if "s" not in mu or not trailing:
-        return _update_leaf_(g.to_local(), p.to_local(), {k: a.to_local() for k, a in mu.items()},
-                             {k: a.to_local() for k, a in nu.items()}, lr, c1, c2, cfg)
-    local_shape, offset = compute_local_shape_and_global_offset(p.shape, mesh, place)
-    if local_shape[-1] % cfg.block == 0:
-        b0, b1 = offset[-1] // cfg.block, (offset[-1] + local_shape[-1]) // cfg.block
-        ms, ns = (m["s"].to_local()[..., b0:b1] for m in (mu, nu))
-        _update_leaf_(g.to_local(), p.to_local(), {"q": mu["q"].to_local(), "s": ms},
-                      {"q": nu["q"].to_local(), "s": ns}, lr, c1, c2, cfg)
-        s_place = list(mu["s"].placements)
-        for i in trailing:
-            s_place[i] = Shard(last)
-        for m, part in ((mu, ms), (nu, ns)):
-            whole = DTensor.from_local(part.contiguous(), mesh, s_place, run_check=False).redistribute(
-                mesh, mu["s"].placements)
-            m["s"].to_local().copy_(whole.to_local())
-        return None
-    # the codec's blocks straddle the trailing axis's shards: gather it
-    work = tuple(Replicate() if i in trailing else pl for i, pl in enumerate(place))
-    full = [a.redistribute(mesh, work) for a in (g, p, mu["q"], nu["q"])]
-    _update_leaf_(full[0].to_local(), full[1].to_local(),
-                  {"q": full[2].to_local(), "s": mu["s"].to_local()},
-                  {"q": full[3].to_local(), "s": nu["s"].to_local()}, lr, c1, c2, cfg)
-    for src, dst in zip(full[1:], (p, mu["q"], nu["q"])):
-        dst.to_local().copy_(src.redistribute(mesh, place).to_local())
+    work = place
+    if "s" in mu:
+        local_shape, _ = compute_local_shape_and_global_offset(p.shape, mesh, place)
+        if local_shape[-1] % cfg.block:
+            work = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+                         for pl in place)
+    leaves = [g, p, *mu.values(), *nu.values()]
+    blocks = [a if tuple(a.placements) == work else a.redistribute(mesh, work)
+              for a in leaves]
+    n = len(mu)
+    local = [b.to_local() for b in blocks]
+    _update_leaf_(local[0], local[1], dict(zip(mu, local[2:2 + n])),
+                  dict(zip(nu, local[2 + n:])), lr, c1, c2, cfg)
+    for src, dst in zip(blocks[1:], leaves[1:]):
+        if src is not dst:
+            dst.to_local().copy_(src.redistribute(mesh, dst.placements).to_local())
     return None
 
 

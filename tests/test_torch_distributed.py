@@ -1,8 +1,9 @@
 """The port's distribution layer against the JAX package: the compressed
 all-reduce, the data-parallel train step on 4 gloo ranks against the
 reference's ``make_dp_train_step`` on a 4-device CPU mesh, the
-DTensor-sharded train step on a (4, 2) mesh against one device, the
-elastic restore onto (2, 2, 2) and the training CLI on 2 ranks.
+DTensor-sharded train step on a (4, 2) mesh against one device (phi4,
+qwen3-moe's dispatch, hymba's SSM and xlstm's cells, int8 moments on two of
+them), the elastic restore onto (2, 2, 2) and the training CLI on 2 ranks.
 
 Each world size runs as one job of ``tests/torch_dist_jobs.py``: a process
 per rank on the CPU over gloo, whose rank 0 writes its results for the
@@ -32,6 +33,7 @@ from repro_torch.models import lm, registry  # noqa: E402
 from repro_torch.nn.module import materialize  # noqa: E402
 from repro_torch.optim.compress import compressed_psum_plain  # noqa: E402
 from repro_torch.tree import leaves_with_path, tree_map  # noqa: E402
+from torch_dist_jobs import SHARDED_ARCHS  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -188,7 +190,18 @@ def test_dp_step_compressed_matches_jax(dp_runs):
                       "against the reference (gradient and uniform at a rounding boundary)")
 
 
-def test_sharded_train_step_matches_one_device(tmp_path):
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """One 8-rank run of the ``sharded`` job: phi4's results and those of
+    the archs of ``torch_dist_jobs.SHARDED_ARCHS``."""
+    d = str(tmp_path_factory.mktemp("sharded"))
+    _spawn("sharded", 8, d)
+    with np.load(os.path.join(d, "sharded.npz")) as z, \
+            np.load(os.path.join(d, "sharded_more.npz")) as more:
+        return dict(z), dict(more)
+
+
+def test_sharded_train_step_matches_one_device(sharded_runs):
     """The DTensor-sharded train step on a (4, 2) mesh (float32 params by
     ``param_pspecs``, float32 moments by ``optimizer_pspecs``, the batch on
     ``data``, ``grad_shardings`` pinned, inside ``logical_sharding``)
@@ -197,16 +210,58 @@ def test_sharded_train_step_matches_one_device(tmp_path):
     (one Adam step moves a param by ≈ lr = 3e-6; the sharded sums only
     reorder float32 additions), the placements kept; and the elastic restore
     of an unsharded checkpoint onto (2, 2, 2), each rank's shard exact."""
-    d = str(tmp_path)
-    _spawn("sharded", 8, d)
-    with np.load(os.path.join(d, "sharded.npz")) as z:
-        z = dict(z)
+    z, _ = sharded_runs
     assert bool(z["kept"])
     np.testing.assert_allclose(z["got_loss"], z["ref_loss"], rtol=1e-6)
     keys = _leaf_keys(z, "ref")
     assert keys == _leaf_keys(z, "got") and len(keys) > 5
     for k in keys:
         np.testing.assert_allclose(z["got" + k], z["ref" + k], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", sorted(SHARDED_ARCHS))
+def test_sharded_train_step_more_archs(sharded_runs, arch):
+    """The same step for qwen3-moe (float32 moments; the MoE dispatch on
+    DTensors replicates the expert ids and ranks them in the reference's
+    global order, so every ``dispatch_indices`` call equals one device's
+    bit for bit), hymba (the SSM's per-rank scan) and xlstm (the per-rank
+    mLSTM and sLSTM recurrences), both with int8 moments on sharded leaves.
+    The loss within 1e-6; float32 moments within 3e-6 of each leaf's
+    largest (worst 7.7e-7) and params within 1e-7 + 1e-6·|p|.  int8
+    moments: codes within one level, scales within 2e-5 of each leaf's
+    largest (worst 4.9e-6): a code sits at a rounding edge where the two
+    runs' float32 sums part; params within 2·lr + 1e-6·|p|, the elements
+    past 1e-7 + 1e-6·|p| (a gradient within float32 noise of 0 turned the
+    other way by Adam's first step) reported, at most 1e-4 of them."""
+    _, z = sharded_runs
+    get = lambda k: z[f"{arch}['{k}']"]
+    assert bool(get("kept"))
+    np.testing.assert_allclose(get("got_loss"), get("ref_loss"), rtol=1e-6)
+    if arch.startswith("qwen3"):
+        assert int(get("dispatches")) > 0 and bool(get("dispatch_equal"))
+    keys = _leaf_keys(z, f"{arch}['ref']")
+    assert keys == _leaf_keys(z, f"{arch}['got']") and len(keys) > 5
+    lr = 3e-4 / 100
+    parted = total = 0
+    for k in keys:
+        ref, got = z[f"{arch}['ref']{k}"], z[f"{arch}['got']{k}"]
+        if SHARDED_ARCHS[arch] == "float32":
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7, err_msg=k)
+        else:
+            assert np.all(np.abs(got - ref) <= 2 * lr * (1 + 1e-5) + 1e-6 * np.abs(ref)), k
+            parted += int(np.count_nonzero(np.abs(got - ref) > 1e-7 + 1e-6 * np.abs(ref)))
+        total += ref.size
+    assert parted <= 1e-4 * total, (parted, total)
+    if parted:
+        warnings.warn(f"{arch}: {parted} of {total} params parted at Adam's first step "
+                      "(a gradient within float32 noise of 0)")
+    for k in _leaf_keys(z, f"{arch}['ref_opt']"):
+        ref, got = z[f"{arch}['ref_opt']{k}"], z[f"{arch}['got_opt']{k}"]
+        if ref.dtype == np.int8:
+            assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1, k
+        else:
+            tol = 2e-5 if k.endswith("['s']") else 3e-6
+            assert np.abs(got - ref).max() <= tol * max(np.abs(ref).max(), 1e-30), k
 
 
 def test_cli_two_ranks_grad_compress_learns(tmp_path):

@@ -1,7 +1,7 @@
 """The port's dry-run and its step analysis (``launch/dryrun.py``,
 ``launch/hlo.py``): the roofline against the JAX package's formula, the
 counter's FLOPs on plain and sharded products, every arch's smoke
-``train_4k`` cell on a 2 × 2 fake mesh, the records read by the untouched
+``train_4k`` cell OK on a 2 × 2 fake mesh, the records read by the untouched
 ``benchmarks/roofline.py``, and the CLI.
 
 A fake process group is process-global: each test that needs one opens and
@@ -23,7 +23,6 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
-DENSE_GQA = ("phi4-mini-3.8b", "nemotron-4-15b", "phi3-medium-14b", "llama3-405b")
 KEYS = ("status", "arch", "shape", "multi_pod")
 OK_KEYS = ("memory", "cost", "collectives", "roofline", "fits_hbm", "n_devices",
            "model_flops", "params", "mesh")
@@ -93,17 +92,13 @@ def smoke_records():
 
 @pytest.mark.parametrize("arch", registry.ARCH_IDS)
 def test_smoke_train_cell_on_a_2x2_fake_mesh(smoke_records, arch):
-    """Every arch's smoke train cell is attempted: OK for the dense GQA
-    archs, a well-formed record (OK, or LOWER_FAILED with its error) for
-    every one."""
+    """Every arch's smoke train cell traces OK (the MoE dispatch, Hymba's
+    SSM and xLSTM's cells on DTensors, the int8 moments on sharded leaves)
+    and its record is well-formed."""
     rec = smoke_records[arch]
     json.dumps(rec, allow_nan=False)
     assert all(k in rec for k in KEYS), rec
-    if arch in DENSE_GQA:
-        assert rec["status"] == "OK", rec.get("error")
-    if rec["status"] != "OK":
-        assert rec["status"] == "LOWER_FAILED" and rec["error"] and rec["trace"]
-        return
+    assert rec["status"] == "OK", rec.get("error")
     assert all(k in rec for k in OK_KEYS)
     mem, cost, roof = rec["memory"], rec["cost"], rec["roofline"]
     assert mem["argument_bytes"] > 0 and mem["temp_bytes"] > 0
@@ -127,7 +122,7 @@ def test_roofline_bench_reads_the_port_records(smoke_records, tmp_path):
             json.dump(rec, f)
     rows = roofline.run(verbose=False, dryrun_dir=str(tmp_path))
     ok = sorted(a for a, r in smoke_records.items() if r["status"] == "OK")
-    assert sorted(r["arch"] for r in rows) == ok and set(DENSE_GQA) <= set(ok)
+    assert sorted(r["arch"] for r in rows) == ok == sorted(registry.ARCH_IDS)
 
 
 def test_counter_same_on_real_and_meta_tensors():

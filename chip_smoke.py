@@ -250,7 +250,7 @@ def free_device_memory():
 def patched(module, name, wrap):
     """Replaces ``module.name`` by ``wrap(original)`` while entered: the
     port calls these functions through their module, so the wrapper sees
-    every call (chip_smoke's instrumentation; the port has none)."""
+    every call (chip_smoke's instrumentation from outside the program)."""
     fn = getattr(module, name)
     setattr(module, name, wrap(fn))
     try:
@@ -260,7 +260,9 @@ def patched(module, name, wrap):
 
 
 def ranged(module, name):
-    """Wraps every call of ``module.name`` in a profiler range of that name."""
+    """Wraps every call of ``module.name`` in a profiler range of that name
+    (for what the program does not range itself: MLA's decompression, the
+    SSM and xLSTM blocks)."""
     def wrap(fn):
         def inner(*a, **k):
             with torch.profiler.record_function(name):
@@ -3419,11 +3421,9 @@ def train_card_vs_cpu(launches):
 def _profile_train_step(step, params, opt, batch):
     """One train step under the profiler: wall ms, device busy ms and share,
     device operations, the top device kernels and the AdamW update's share
-    of the device time (a ``record_function`` range around it)."""
+    of the device time (the program's ``optim/adamw`` range)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.optim import adamw as adamw_mod
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -3431,13 +3431,12 @@ def _profile_train_step(step, params, opt, batch):
     def op_dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
-    with ranged(adamw_mod, "adamw_update_"):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, opt, batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            step(params, opt, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
+        wall = time.perf_counter() - t
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -3445,7 +3444,7 @@ def _profile_train_step(step, params, opt, batch):
     if busy_us <= 0:
         raise AssertionError("train profile: the profiler recorded no device time")
     adam_us = sum(op_dev_us(e) for e in events
-                  if e.key == "adamw_update_" and e.device_type == DeviceType.CPU)
+                  if e.key == "optim/adamw" and e.device_type == DeviceType.CPU)
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     return {"wall_ms_profiled": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / wall,

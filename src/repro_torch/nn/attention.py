@@ -36,6 +36,11 @@ written rank by rank, each rank its own rows (``_put_rows_sharded``), and a
 decode step attends as a flash decode: each rank over its own rows, the
 softmax partials combined by all-reduces (``_flash_decode``); longer query
 tiles run each rank's (batch, head) block (``_sharded_sdpa``).
+
+Under the profiler each cache-taking core (``_paged_gqa_core``,
+``_dense_gqa_core``, ``_mla_cache_core``: the cache writes and the attention
+over the cache, not the projections) runs inside an ``attn/core`` range
+(``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import AttnConfig
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.nn.layers import apply_mrope, apply_rope, linear, linear_spec, rmsnorm
@@ -399,6 +405,7 @@ def _gather_attend(q, kp, vp, tables, positions, visible, window: int):
     return sdpa(q, ck, cv, positions, k_pos, window)
 
 
+@obs.ranged("attn/core")
 def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
                     spec_decode: bool = False, q_lens=None, q_decode=None):
     """Write the new K/V rows into the block pool and attend through it.
@@ -539,6 +546,7 @@ def _visible_rows(nxt, size: int, device):
     return torch.where(slot_rows < nxt, slot_rows, 2**30).to(torch.int32)
 
 
+@obs.ranged("attn/core")
 def _dense_gqa_core(q, k, v, cfg: AttnConfig, positions, cache):
     """Write the new K/V rows into a dense or ring-buffer cache and attend
     over it: the four cases of the JAX package's ``_gqa_attention``.
@@ -679,20 +687,34 @@ def _mla_attention(p, x, cfg: AttnConfig, positions, cache, odin):
     k_rope = apply_rope(kv[:, :, None, cfg.kv_lora_rank:], positions, cfg.rope_theta)[:, :, 0]
 
     if cache is None:
-        new_cache, k_pos = None, positions
+        new_cache = None
+        o = mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, positions,
+                                  odin)
     else:
-        pos = cache["pos"]
-        size = cache["c_kv"].shape[1]
-        cdt = cache["c_kv"].dtype
-        idx = torch.arange(S, dtype=torch.int32, device=x.device)
-        rows, nxt = _chunk_rows(pos, idx, S, size)
-        c_kv_q = _put_rows(cache["c_kv"], rows, _cache_write(c_kv, cdt))
-        k_rope_q = _put_rows(cache["k_rope"], rows, _cache_write(k_rope, cdt))
-        k_pos = _visible_rows(nxt, size, x.device).expand(B, size)
-        new_cache = {"c_kv": c_kv_q, "k_rope": k_rope_q, "pos": pos + S}
-        c_kv, k_rope = _cache_read(c_kv_q, x.dtype), _cache_read(k_rope_q, x.dtype)
-    o = mla_decompress_attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, k_pos, odin)
+        o, new_cache = _mla_cache_core(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, cache,
+                                       odin, x.dtype)
     return linear(reshape(o, B, S, H * cfg.v_head_dim), p["o"], odin), new_cache
+
+
+@obs.ranged("attn/core")
+def _mla_cache_core(p, q_nope, q_rope, c_kv, k_rope, cfg: AttnConfig, positions, cache,
+                    odin, dtype):
+    """MLA's cache path: write the chunk's latent rows ``c_kv [B, S, r]``
+    and ``k_rope`` into the cache (read back in ``dtype``), then decompress
+    and attend over the whole cache.  Returns (output, new cache)."""
+    B, S = c_kv.shape[0], c_kv.shape[1]
+    pos = cache["pos"]
+    size = cache["c_kv"].shape[1]
+    cdt = cache["c_kv"].dtype
+    idx = torch.arange(S, dtype=torch.int32, device=c_kv.device)
+    rows, nxt = _chunk_rows(pos, idx, S, size)
+    c_kv_q = _put_rows(cache["c_kv"], rows, _cache_write(c_kv, cdt))
+    k_rope_q = _put_rows(cache["k_rope"], rows, _cache_write(k_rope, cdt))
+    k_pos = _visible_rows(nxt, size, c_kv.device).expand(B, size)
+    new_cache = {"c_kv": c_kv_q, "k_rope": k_rope_q, "pos": pos + S}
+    o = mla_decompress_attend(p, q_nope, q_rope, _cache_read(c_kv_q, dtype),
+                              _cache_read(k_rope_q, dtype), cfg, positions, k_pos, odin)
+    return o, new_cache
 
 
 def attention(p, x, cfg: AttnConfig, positions=None, cache=None, odin=None,

@@ -16,7 +16,8 @@ trailing axis) at a time, so its temporaries are a few float32 copies of
 one block: every operation is elementwise or, for the int8 codec, blockwise
 along the trailing axis, so the blocks give the functional form's values
 bit for bit.  ``adamw_update_sharded_`` runs the in-place update on the
-local shards of DTensor parameters and moments.
+local shards of DTensor parameters and moments.  Under the profiler both
+in-place updates run inside an ``optim/adamw`` range (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.quant import true_div
 from repro_torch.tree import leaves_with_path, tree_map
 
@@ -196,6 +198,7 @@ def _update_leaf_(g, p, mu, nu, lr, c1, c2, cfg: AdamWConfig):
                 dst[k].copy_(a)
 
 
+@obs.ranged("optim/adamw")
 @torch.no_grad()
 def adamw_update_(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
     """``adamw_update`` in place: writes the new parameters into ``params``
@@ -254,6 +257,7 @@ def _sharded_leaf_(g, p, mu, nu, lr, c1, c2, cfg: AdamWConfig):
     return None
 
 
+@obs.ranged("optim/adamw")
 @torch.no_grad()
 def adamw_update_sharded_(grads, params, state, lr, cfg: AdamWConfig = AdamWConfig()):
     """``adamw_update_`` on DTensor params, gradients and moments (placed by

@@ -41,12 +41,12 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
-from contextlib import nullcontext
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (init_serving_caches,
@@ -68,7 +68,7 @@ from repro_torch.serving.metrics import EngineStats, OdinCostModel, summarize
 from repro_torch.serving.reliability import ReliabilityConfig
 from repro_torch.serving.scheduler import (PrefixCache, PrefixGrant, Request,
                                            RequestState, Scheduler)
-from repro_torch.serving.trace import NULL_TRACER, MetricsRegistry
+from repro_torch.serving.trace import NULL_TRACER, MetricsRegistry, StepPhases
 from repro_torch.tree import leaves_with_path
 
 __all__ = ["ServingEngine"]
@@ -92,7 +92,9 @@ class ServingEngine:
     * ``jit_cache`` bounds the LRU of fused step functions keyed by the
       granted ``(h, spec K)`` (eager functions, no executables; evictions
       are counted as in the JAX engine); ``xla_annotations`` wraps each
-      dispatch in a ``torch.profiler.record_function`` range instead;
+      dispatch in a ``torch.profiler.record_function`` range instead, and
+      each of a step's host phases (``trace.StepPhases``) in one of its own,
+      while the profiler records;
     * the guarded decode step is an eager function built with the others,
       not an executable compiled on first use.
 
@@ -286,6 +288,7 @@ class ServingEngine:
         self.metrics = MetricsRegistry(window_s=metrics_window)
         self.metrics.maybe_roll(self._now(), self._counter_snapshot())
         self.xla_annotations = bool(xla_annotations)
+        self._phases: Optional[StepPhases] = None    # the step in progress
 
         # ---- robustness substrate ----------------------------------------
         self.deadline_s = deadline_s
@@ -357,9 +360,7 @@ class ServingEngine:
     def _annotate(self, kind: str):
         """Optional profiler range around a dispatch, so device timelines
         line up with the engine's own spans."""
-        if self.xla_annotations:
-            return torch.profiler.record_function(f"serving/{kind}")
-        return nullcontext()
+        return obs.prof_range(f"serving/{kind}") if self.xla_annotations else obs.NULL_RANGE
 
     def _counter_snapshot(self) -> Dict[str, float]:
         """Cumulative counters the metrics registry turns into window deltas."""
@@ -908,6 +909,8 @@ class ServingEngine:
         ``q_len = 1`` plus mid-prefill slots at ``q_len ≤ chunk``, packed by
         ``Scheduler.pack_mixed`` under the ``mixed_budget`` row budget.  The
         tile width snaps to a power of two, as in the JAX engine."""
+        ph = self._phases
+        ph.to("pack")
         decode, parts = self.sched.pack_mixed(self.mixed_budget, self.chunk)
         if not decode and not parts:
             return
@@ -930,16 +933,21 @@ class ServingEngine:
             tok[r.slot, ..., Q - c:] = np.asarray(
                 r.replay_tokens(), np.int32)[..., start:start + c]
         t0 = self._now()
+        ph.to("upload", t0, kind="mixed")
         tables = self._refresh_tables()
-        dm_dev = self._dev(dm)
-        with self._annotate("mixed"):
-            nxt, last_logits, self.caches = self._mixed(
-                self.params, self.caches, self._dev(tok), self._dev(self._slot_len),
-                self._dev(q_lens), dm_dev, self._dev(active), tables,
-                self._generator(self.stats.decode_steps), self.temperature)
-            host = nxt.cpu().numpy()                 # syncs the step
-            ll_host = last_logits.float().cpu().numpy() if parts else None
-        wall = self._now() - t0
+        tok_dev, len_dev, q_lens_dev = self._dev(tok), self._dev(self._slot_len), self._dev(q_lens)
+        dm_dev, active_dev = self._dev(dm), self._dev(active)
+        gen = self._generator(self.stats.decode_steps)
+        ph.to("enqueue")
+        nxt, last_logits, self.caches = self._mixed(
+            self.params, self.caches, tok_dev, len_dev, q_lens_dev, dm_dev, active_dev, tables,
+            gen, self.temperature)
+        ph.to("sync")
+        host = nxt.cpu().numpy()                     # syncs the step
+        ll_host = last_logits.float().cpu().numpy() if parts else None
+        t1 = self._now()
+        ph.to("emit", t1)
+        wall = t1 - t0
         dec_rows = len(decode)
         pre_rows = sum(c for _, _, c in parts)
         rows = dec_rows + pre_rows
@@ -952,13 +960,12 @@ class ServingEngine:
         self.stats.mixed_decode_rows += dec_rows
         self.stats.mixed_prefill_rows += pre_rows
         if self.tracer.enabled:
-            self.tracer.span(
-                "mixed", "dispatch", "dispatch", t0, wall,
-                args={"kind": "mixed", "q_tile": Q,
-                      "slots_active": int(active.sum()),
-                      "decode_rows": dec_rows, "prefill_rows": pre_rows,
-                      "tokens": dec_rows, "rows": rows, "host_syncs": 1,
-                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+            ph.span = ("mixed", t0, wall,
+                       {"kind": "mixed", "q_tile": Q,
+                        "slots_active": int(active.sum()),
+                        "decode_rows": dec_rows, "prefill_rows": pre_rows,
+                        "tokens": dec_rows, "rows": rows, "host_syncs": 1,
+                        "odin_energy_mj": self.cost_model.energy_mj(rows)})
         now = self._now()
         if decode:
             # the decode sampling schedule only advances when decode rows
@@ -999,8 +1006,25 @@ class ServingEngine:
                 self._complete(r, now)
 
     def step(self) -> bool:
-        """One engine iteration; returns True while work remains."""
+        """One engine iteration; returns True while work remains.  The
+        step's dispatch span, with its host phases (``trace.StepPhases``),
+        is pushed at its end."""
         now = self._now()
+        ph = self._phases = StepPhases(self._now, now, self.tracer.enabled,
+                                       self.xla_annotations)
+        try:
+            self._step(now)
+        finally:
+            self._phases = None
+            fields = ph.finish()
+        if ph.span is not None:
+            name, ts, dur, args = ph.span
+            args.update(fields)
+            self.tracer.span(name, "dispatch", "dispatch", ts, dur, args=args)
+        return self.sched.has_work
+
+    def _step(self, now: float) -> None:
+        """The work of ``step``, from its clock reading ``now``."""
         if self._watched:
             self._expire(now)
         nan_ev = None
@@ -1155,36 +1179,38 @@ class ServingEngine:
         if self.degrade is not None:
             self._observe_degrade(self._now())
         self.metrics.maybe_roll(self._now(), self._counter_snapshot())
-        return self.sched.has_work
 
     def _decode_single_step(self, active_slots: List[int]) -> None:
         """One ``[slots, 1]`` decode dispatch (the horizon=1 parity baseline)."""
-        trace = self.tracer.enabled
-        t0 = self._now()
+        ph = self._phases
+        ph.to("pack")
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
+        t0 = self._now()
+        ph.to("upload", t0, kind="decode")
         tables = self._refresh_tables()
-        active_dev = self._dev(active)
-        with self._annotate("decode"):
-            nxt, self.caches = self._decode(
-                self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), active_dev, tables,
-                self._generator(self.stats.decode_steps), self.temperature)
-            # syncs the step; a copy, as emitted frames are views of it and
-            # on the CPU ``nxt`` becomes ``_last_tok``, which admissions
-            # overwrite in place
-            host = nxt.cpu().numpy().copy()
-        wall = self._now() - t0
+        active_dev, len_dev = self._dev(active), self._dev(self._slot_len)
+        gen = self._generator(self.stats.decode_steps)
+        ph.to("enqueue")
+        nxt, self.caches = self._decode(self.params, self.caches, self._last_tok, len_dev,
+                                        active_dev, tables, gen, self.temperature)
+        ph.to("sync")
+        # syncs the step; a copy, as emitted frames are views of it and on
+        # the CPU ``nxt`` becomes ``_last_tok``, which admissions overwrite
+        # in place
+        host = nxt.cpu().numpy().copy()
+        t1 = self._now()
+        ph.to("emit", t1)
+        wall = t1 - t0
         self.stats.decode_time += wall
         self.metrics.observe("dispatch_decode_s", wall)
-        if trace:
+        if self.tracer.enabled:
             rows = len(active_slots)
-            self.tracer.span(
-                "decode", "dispatch", "dispatch", t0, wall,
-                args={"kind": "decode", "h": 1, "spec_k": 0,
-                      "slots_active": rows, "tokens": rows, "rows": rows,
-                      "host_syncs": 1,
-                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+            ph.span = ("decode", t0, wall,
+                       {"kind": "decode", "h": 1, "spec_k": 0,
+                        "slots_active": rows, "tokens": rows, "rows": rows,
+                        "host_syncs": 1,
+                        "odin_energy_mj": self.cost_model.energy_mj(rows)})
         self.stats.decode_steps += 1
         self.stats.dispatches += 1
         self.stats.decode_dispatches += 1
@@ -1211,8 +1237,8 @@ class ServingEngine:
         The guard fails that request; every other slot samples from untouched
         logits with the plain step's noise schedule, so unfaulted co-batched
         greedy streams equal a fault-free run's."""
-        trace = self.tracer.enabled
-        t0 = self._now()
+        ph = self._phases
+        ph.to("pack")
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
         poison = np.zeros(self.slots, bool)
@@ -1220,30 +1246,34 @@ class ServingEngine:
         poison[target] = True
         self.fault_plan.record(ev, "poisoned", slot=target,
                                rid=self.sched.running[target].rid)
+        t0 = self._now()
+        ph.to("upload", t0, kind="decode")
         tables = self._refresh_tables()
-        active_dev = self._dev(active)
-        with self._annotate("decode"):
-            nxt, bad, self.caches = self._guarded(
-                self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), active_dev, tables,
-                self._generator(self.stats.decode_steps), self.temperature,
-                self._dev(poison))
-            # syncs the step; a copy, as emitted frames are views of it and
-            # on the CPU ``nxt`` becomes ``_last_tok``, which admissions
-            # overwrite in place
-            host = nxt.cpu().numpy().copy()
-            badh = bad.cpu().numpy()
-        wall = self._now() - t0
+        active_dev, len_dev = self._dev(active), self._dev(self._slot_len)
+        poison_dev = self._dev(poison)
+        gen = self._generator(self.stats.decode_steps)
+        ph.to("enqueue")
+        nxt, bad, self.caches = self._guarded(self.params, self.caches, self._last_tok, len_dev,
+                                              active_dev, tables, gen, self.temperature,
+                                              poison_dev)
+        ph.to("sync")
+        # syncs the step; a copy, as emitted frames are views of it and on
+        # the CPU ``nxt`` becomes ``_last_tok``, which admissions overwrite
+        # in place
+        host = nxt.cpu().numpy().copy()
+        badh = bad.cpu().numpy()
+        t1 = self._now()
+        ph.to("emit", t1)
+        wall = t1 - t0
         self.stats.decode_time += wall
         self.metrics.observe("dispatch_decode_s", wall)
-        if trace:
+        if self.tracer.enabled:
             rows = len(active_slots)
-            self.tracer.span(
-                "decode", "dispatch", "dispatch", t0, wall,
-                args={"kind": "decode", "h": 1, "spec_k": 0, "guarded": True,
-                      "slots_active": rows, "tokens": rows, "rows": rows,
-                      "host_syncs": 1,
-                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+            ph.span = ("decode", t0, wall,
+                       {"kind": "decode", "h": 1, "spec_k": 0, "guarded": True,
+                        "slots_active": rows, "tokens": rows, "rows": rows,
+                        "host_syncs": 1,
+                        "odin_energy_mj": self.cost_model.energy_mj(rows)})
         self.stats.decode_steps += 1
         self.stats.dispatches += 1
         self.stats.decode_dispatches += 1
@@ -1277,34 +1307,40 @@ class ServingEngine:
         returned ``counts`` say which prefix of each slot's row is real.
         Per-token timestamps interpolate over the dispatch's span of the
         engine clock."""
-        t_before = self._now()
+        ph = self._phases
+        ph.to("pack")
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
         rem = np.zeros(self.slots, np.int32)
         for s in active_slots:
             rem[s] = self.sched.running[s].remaining
+        t_before = self._now()
+        ph.to("upload", t_before, kind="horizon")
         tables = self._refresh_tables()
+        len_dev, active_dev, rem_dev = (self._dev(self._slot_len), self._dev(active),
+                                        self._dev(rem))
         step0 = self.stats.decode_steps
         gens = (None if self.temperature <= 0
                 else [self._generator(step0 + i) for i in range(h)])
-        with self._annotate("horizon"):
-            block, counts, last, self.caches = self._fused_fn(h, 0)(
-                self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), self._dev(active), self._dev(rem),
-                tables, gens, self.temperature,
-                -1 if self.eos_id is None else self.eos_id)
-            block, counts = block.cpu().numpy(), counts.cpu().numpy()  # ONE sync
-        wall = self._now() - t_before
+        fn = self._fused_fn(h, 0)
+        ph.to("enqueue")
+        block, counts, last, self.caches = fn(
+            self.params, self.caches, self._last_tok, len_dev, active_dev, rem_dev,
+            tables, gens, self.temperature, -1 if self.eos_id is None else self.eos_id)
+        ph.to("sync")
+        block, counts = block.cpu().numpy(), counts.cpu().numpy()  # ONE sync
+        t1 = self._now()
+        ph.to("emit", t1)
+        wall = t1 - t_before
         self.stats.decode_time += wall
         self.metrics.observe("dispatch_decode_s", wall)
         if self.tracer.enabled:
             emitted = int(counts.sum())
-            self.tracer.span(
-                "horizon", "dispatch", "dispatch", t_before, wall,
-                args={"kind": "horizon", "h": h, "spec_k": 0,
-                      "slots_active": len(active_slots), "tokens": emitted,
-                      "rows": emitted, "host_syncs": 1,
-                      "odin_energy_mj": self.cost_model.energy_mj(emitted)})
+            ph.span = ("horizon", t_before, wall,
+                       {"kind": "horizon", "h": h, "spec_k": 0,
+                        "slots_active": len(active_slots), "tokens": emitted,
+                        "rows": emitted, "host_syncs": 1,
+                        "odin_energy_mj": self.cost_model.energy_mj(emitted)})
         self.stats.decode_steps += h
         self.stats.dispatches += 1
         self.stats.decode_dispatches += 1
@@ -1339,22 +1375,30 @@ class ServingEngine:
         over the dispatch's engine-clock span per inner step, and within a
         step across its accepted run."""
         K = self.spec_ngram
-        t_before = self._now()
+        ph = self._phases
+        ph.to("pack")
         active = np.zeros(self.slots, bool)
         active[active_slots] = True
         rem = np.zeros(self.slots, np.int32)
         for s in active_slots:
             rem[s] = self.sched.running[s].remaining
+        t_before = self._now()
+        ph.to("upload", t_before, kind="spec-horizon")
         tables = self._refresh_tables()
-        with self._annotate("spec-horizon"):
-            block, counts, last, hist, self.caches = self._fused_fn(h, K)(
-                self.params, self.caches, self._last_tok,
-                self._dev(self._slot_len), self._dev(active), self._dev(rem),
-                self._hist, tables, -1 if self.eos_id is None else self.eos_id)
-            block, counts = block.cpu().numpy(), counts.cpu().numpy()  # ONE sync
+        len_dev, active_dev, rem_dev = (self._dev(self._slot_len), self._dev(active),
+                                        self._dev(rem))
+        fn = self._fused_fn(h, K)
+        ph.to("enqueue")
+        block, counts, last, hist, self.caches = fn(
+            self.params, self.caches, self._last_tok, len_dev, active_dev, rem_dev,
+            self._hist, tables, -1 if self.eos_id is None else self.eos_id)
+        ph.to("sync")
+        block, counts = block.cpu().numpy(), counts.cpu().numpy()  # ONE sync
+        t1 = self._now()
+        ph.to("emit", t1)
         self._last_tok = last
         self._hist = hist
-        wall = self._now() - t_before
+        wall = t1 - t_before
         self.stats.decode_time += wall
         self.metrics.observe("dispatch_decode_s", wall)
         self.stats.decode_steps += h
@@ -1377,15 +1421,14 @@ class ServingEngine:
             if s_over:
                 self.sched.running[s].spec_overhead_rows += s_over
         if self.tracer.enabled:
-            self.tracer.span(
-                "spec-horizon", "dispatch", "dispatch", t_before, wall,
-                args={"kind": "spec-horizon", "h": h, "spec_k": K,
-                      "slots_active": len(active_slots), "tokens": emitted,
-                      "drafted": K * int(live.sum()),
-                      "accepted": int((counts - live).sum()),
-                      "rows": rows, "overhead_rows": rows - emitted,
-                      "host_syncs": 1,
-                      "odin_energy_mj": self.cost_model.energy_mj(rows)})
+            ph.span = ("spec-horizon", t_before, wall,
+                       {"kind": "spec-horizon", "h": h, "spec_k": K,
+                        "slots_active": len(active_slots), "tokens": emitted,
+                        "drafted": K * int(live.sum()),
+                        "accepted": int((counts - live).sum()),
+                        "rows": rows, "overhead_rows": rows - emitted,
+                        "host_syncs": 1,
+                        "odin_energy_mj": self.cost_model.energy_mj(rows)})
         now_w = self._now()
         for s in active_slots:
             # endurance mirror: every live inner step wrote a K+1-row verify

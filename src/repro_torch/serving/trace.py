@@ -18,6 +18,12 @@ Two instruments, both cheap enough to leave compiled-in:
   no-op recorder whose ``enabled`` flag lets every call site skip even the
   argument-dict construction, so the trace-off hot path allocates nothing.
 
+* :class:`StepPhases` — one engine step's host phases (plan, pack, upload,
+  enqueue, sync, emit) on the engine clock, written as ``<phase>_s`` fields
+  of the step's dispatch span when the tracer records, and each a profiler
+  range ``serving/<phase>`` under ``xla_annotations`` while the profiler
+  records, so that the spans and the device trace share one timeline.
+
 * :class:`MetricsRegistry` — windowed serving metrics.  Log-bucketed
   streaming histograms (TTFT / TPOT / per-dispatch wall time) plus counter
   deltas are snapshotted every ``window_s`` seconds of engine clock, so a
@@ -46,7 +52,10 @@ import math
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch import obs
+
 __all__ = ["TraceEvent", "Tracer", "NullTracer", "NULL_TRACER",
+           "PHASES", "StepPhases",
            "LogHistogram", "MetricsRegistry",
            "chrome_trace", "validate_chrome_trace"]
 
@@ -201,6 +210,83 @@ class Tracer(NullTracer):
         with open(path, "w") as f:
             json.dump(obj, f, allow_nan=False)
         return obj
+
+
+# ------------------------------------------------------------ step phases
+
+PHASES = ("plan", "pack", "upload", "enqueue", "sync", "emit")
+_IN_DISPATCH = ("upload", "enqueue", "sync")
+
+
+def _enter(name: str):
+    rng = obs.prof_range(name)
+    rng.__enter__()
+    return rng
+
+
+class StepPhases:
+    """The host phases of one engine step, :data:`PHASES` in order:
+
+    ``plan``     step start → the dispatch function (expiry, faults, the
+                 sweep, ``Scheduler.plan``, preemption, resumption and
+                 admission staging, the choice of dispatch);
+    ``pack``     the tile or mask built on the host (``pack_mixed``);
+    ``upload``   the block tables and the step's inputs copied to the device;
+    ``enqueue``  the step function's call, to its return;
+    ``sync``     the ``.cpu()`` readbacks;
+    ``emit``     readback → end of the step (tokens, write records,
+                 completions, the step's tail).
+
+    ``to(phase, t)`` ends the phase in progress and starts ``phase`` at
+    ``t``, a reading the engine took anyway, or else at a reading of its own;
+    ``kind`` opens the dispatch's ``serving/<kind>`` range, which upload,
+    enqueue and sync sit inside.  With ``timed`` (the tracer records) the
+    clock is read and the seconds summed; with ``ranged``
+    (``xla_annotations``) each phase is a profiler range ``serving/<phase>``
+    while the profiler records.  ``finish()`` closes the step and returns
+    ``{"<phase>_s": seconds}`` (None untimed); the engine then pushes
+    ``span``, the dispatch span its dispatch function left there, with those
+    fields.
+    """
+
+    __slots__ = ("_clock", "_ranged", "_phase", "_t", "_secs", "_rng", "_kind_rng", "span")
+
+    def __init__(self, clock: Callable[[], float], t: float, timed: bool, ranged: bool):
+        self._clock = clock
+        self._ranged = ranged
+        self._phase = "plan"
+        self._t = t
+        self._secs = dict.fromkeys(PHASES, 0.0) if timed else None
+        self._kind_rng = None
+        self._rng = _enter("serving/plan") if ranged else None
+        self.span = None
+
+    def _close(self, keep_kind: bool) -> None:
+        if self._rng is not None:
+            self._rng.__exit__(None, None, None)
+            self._rng = None
+        if self._kind_rng is not None and not keep_kind:
+            self._kind_rng.__exit__(None, None, None)
+            self._kind_rng = None
+
+    def to(self, phase: str, t: Optional[float] = None, kind: Optional[str] = None) -> None:
+        self._close(phase in _IN_DISPATCH)
+        if self._secs is not None:
+            t = self._clock() if t is None else t
+            self._secs[self._phase] += t - self._t
+            self._t = t
+        self._phase = phase
+        if self._ranged:
+            if kind is not None:
+                self._kind_rng = _enter(f"serving/{kind}")
+            self._rng = _enter(f"serving/{phase}")
+
+    def finish(self) -> Optional[Dict[str, float]]:
+        self._close(False)
+        if self._secs is None:
+            return None
+        self._secs[self._phase] += self._clock() - self._t
+        return {f"{p}_s": s for p, s in self._secs.items()}
 
 
 # ------------------------------------------------------------ chrome export

@@ -4,7 +4,7 @@
 Phases, each fatal on failure:
 
 1. report the card (``nvidia-smi`` name and power limit), the torch/CUDA
-   versions, and build the port's four CUDA kernels from ``src/`` with
+   versions, and build the port's five CUDA kernels from ``src/`` with
    ``nvcc``, one process each, in parallel;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes its paths give it, and time kernel, plain version and the library
@@ -42,7 +42,12 @@ Phases, each fatal on failure:
    line gives these times with their bounds and plans); ``int8_mm`` bit for bit at 128x256x128,
    8x3072x8192, 257x1000x129 and 4096^3, with ``torch._int_mm`` timed as its
    yardstick on W as given and on W stored transposed; ``int_matmul`` (float64
-   on the card) against the CPU's int32 matmul;
+   on the card) against the CPU's int32 matmul; ``chunk_attn`` (the mixed
+   tile's and chunked prefill's attention) at rag's and chat's tiles, an
+   int8 pool and a windowed D = 64 case, a row's bits independent of its
+   tile, timed as the engine launches it beside SDPA over gathered K/V,
+   and the tile's decode call timed after the gather, the gather core,
+   ``chunk_attn`` and an L2 flush;
 3. check four small models end to end, dense, MoE, relu² at G = 6 and
    the deepseek-v3 smoke config (MLA + MoE): the engine on the card (CUDA
    kernel) and on the CPU (plain path) must emit the same greedy tokens in
@@ -50,7 +55,11 @@ Phases, each fatal on failure:
 4. serve full-width phi4-mini-3.8b (all 32 layers, random bf16 weights from a
    seeded generator) through the port's ServingEngine with its defaults
    (mixed dispatch, prefix sharing) and show that every forward that carried
-   a decode row or a mixed tile went through the kernel; then a short run
+   a decode row or a mixed tile went through the kernel, and that every
+   prefill chunk and mixed tile launched ``chunk_attn`` once a paged layer
+   (this and the paged kernel's count hold on every counted serving run
+   below, of every model; the gather core never runs a bf16 q over a bf16
+   or int8 pool there); then a short run
    with mixed dispatch off whose streams must equal the first run's, except
    where they part at a near tie of the logits (reported, see
    ``check_divergence``); then 16 requests sharing a prompt prefix in a
@@ -590,6 +599,207 @@ def check_paged_attn():
     return lines
 
 
+def chunk_case(name, *, B=16, S=512, P=132, bs=16, H=24, Hkv=8, D=128, kv="bf16",
+               window=0, chunk_pos=1024, decode_rows=True, seed=0):
+    """A mixed tile as the engine builds it: slot 0 carries a full S-row
+    prompt chunk at ``chunk_pos``, slots 1 … B − 3 a decode row each (q_lens
+    1; with ``decode_rows`` False they go in as 0, as ``_paged_gqa_core``
+    passes them, since the paged kernel's rows replace theirs), the last two
+    slots idle; pools of B·P + 1 blocks, each slot's table a random
+    permutation of its own blocks."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N = B * P + 1
+    q = torch.randn(B, S, H, D, generator=g).bfloat16()
+    if kv == "int8":
+        kp, vp = (torch.randint(-127, 128, (N, bs, Hkv, D), generator=g, dtype=torch.int8)
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.randn(N, bs, Hkv, D, generator=g).bfloat16() for _ in range(2))
+    tables = torch.randperm(N - 1, generator=g)[:B * P].reshape(B, P).int()
+    pos = torch.randint(S, P * bs - S, (B,), generator=g, dtype=torch.int32)
+    pos[0] = chunk_pos
+    q_lens = torch.ones(B, dtype=torch.int32)
+    q_lens[0], q_lens[-2:] = S, 0
+    lengths = pos + q_lens
+    if not decode_rows:
+        q_lens[1:] = 0
+    dev = torch.device("cuda")
+    return dict(name=name, q=q.to(dev), kp=kp.to(dev), vp=vp.to(dev), tables=tables.to(dev),
+                lengths=lengths.to(dev), q_lens=q_lens.to(dev), window=window,
+                kv_scale=16.0 if kv == "int8" else None, G=H // Hkv)
+
+
+def chunk_work(c):
+    """(operations, bytes) the tile needs: 4·D flops a visible key a real
+    row and query head (QKᵀ and PV), each slot's live K/V read once for every
+    KV head that has a real row, the real rows' q read, the whole output
+    written (pad rows get their zeros), the tables."""
+    q, kp = c["q"], c["kp"]
+    B, S, H, D = q.shape
+    bs, Hkv = kp.shape[1], kp.shape[2]
+    P = c["tables"].shape[1]
+    ops = nbytes = 0
+    for b in range(B):
+        ql, L = int(c["q_lens"][b]), int(c["lengths"][b])
+        if ql == 0:
+            continue
+        pos = torch.arange(L - ql, L)
+        hi = torch.clamp(pos + 1, max=min(L, P * bs))
+        lo = torch.clamp(pos - c["window"] + 1, min=0) if c["window"] else torch.zeros_like(pos)
+        ops += 4 * D * H * int((hi - lo).clamp(min=0).sum())
+        keys = min(L, P * bs) - (int(lo[0]) if c["window"] else 0)
+        nbytes += 2 * keys * Hkv * D * kp.element_size() + ql * H * D * q.element_size()
+    return ops, nbytes + q.numel() * q.element_size() + c["tables"].numel() * 4
+
+
+def chunk_tol_excess(out, ref, v_max):
+    """max of |out - ref| / (2^-15·max|V| + 2^-7·|ref|) over the tile: the
+    kernel's P split moves Σ P·V by at most 2^-16·max|V| before the output
+    is rounded (atol is twice that, for the order of the float32 sums), and
+    the rounding to bf16 then adds at most one step, 2^-7·|x|."""
+    ref = ref.float()
+    return ((out.float() - ref).abs() / (2.0 ** -15 * v_max + 2.0 ** -7 * ref.abs())).max().item()
+
+
+def chunk_library_call(c):
+    """One PyTorch call computing the function for the slots with real rows:
+    SDPA over their K/V gathered from the pool (the gather outside the timed
+    call), a boolean causal mask, GQA by ``enable_gqa``."""
+    import torch.nn.functional as F
+    live = torch.nonzero(c["q_lens"]).flatten().tolist()
+    q, kp, vp, tables = c["q"][live], c["kp"], c["vp"], c["tables"][live]
+    B, S, H, D = q.shape
+    P = tables.shape[1]
+    _, bs, Hkv, _ = kp.shape
+    k = kp[tables.long()].reshape(B, P * bs, Hkv, D).transpose(1, 2).to(q.dtype)
+    v = vp[tables.long()].reshape(B, P * bs, Hkv, D).transpose(1, 2).to(q.dtype)
+    if c["kv_scale"] is not None:
+        k, v = k / c["kv_scale"], v / c["kv_scale"]
+    qh = q.transpose(1, 2)
+    L = c["lengths"][live].long()
+    keys = torch.arange(P * bs, device="cuda")
+    qpos = L[:, None] - S + torch.arange(S, device="cuda")
+    mask = (keys[None, None, :] <= qpos[..., None]) & (keys[None, None, :] < L[:, None, None])
+    if c["window"]:
+        mask &= keys[None, None, :] > qpos[..., None] - c["window"]
+    mask = mask[:, None]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+
+def decode_kernel_us_after(c):
+    """Device µs of the tile's decode call (``paged_attention`` on the last
+    column over every slot, as ``_paged_gqa_core`` issues it) right after
+    each of: its own previous call (its K/V warm in L2), a gather of every
+    slot's pages alone, the gather core the parent ran before it
+    (``_gather_attend``: the gather, then the float32 scores), ``chunk_attn``
+    over the tile, and a 256-MB write that flushes the 50-MB L2."""
+    from repro_torch.kernels.chunk_attn import chunk_attn
+    from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.nn import attention as tattn
+
+    q, kp, vp, tables, L = c["q"], c["kp"], c["vp"], c["tables"], c["lengths"]
+    S = q.shape[1]
+    qd = q[:, -1].contiguous()
+    positions = L[:, None] - S + torch.arange(S, device="cuda", dtype=torch.int32)[None]
+    rows = torch.zeros_like(c["q_lens"])
+    rows[0] = c["q_lens"][0]
+    junk = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    before = {"own_previous_call": lambda: None,
+              "page_gather": lambda: (kp[tables.long()], vp[tables.long()]),
+              "gather_core": lambda: tattn._gather_attend(q, kp, vp, tables, positions, L, 0),
+              "chunk_attn": lambda: chunk_attn(q, kp, vp, tables, L, rows),
+              "l2_flush": lambda: junk.fill_(1)}
+    out = {}
+    for name, pre in before.items():
+        us = kernel_us(lambda pre=pre: (pre(), paged_attention(qd, kp, vp, tables, L)), 10)
+        out[name] = sum(v for k, v in us.items() if "paged_attn" in k)
+    return out
+
+
+def check_chunk_attn():
+    """The chunk-attention kernel against its plain version (the float32
+    gather + softmax core the tile ran before it) at rag's mixed tile (16 x
+    512 rows, 24 heads over 8, 132 pages of 16) and chat's (16 x 128, 64
+    heads over 4, 128 pages), an int8 pool and hymba's windowed D = 64;
+    idle slots exactly 0; a real row's bits the same in the tile and in a
+    chunked prefill of its own; then each serving tile timed as the engine
+    launches it (decode slots at q_lens 0) by CUDA-graph replay, beside its
+    bound, the plain version and SDPA over the gathered K/V."""
+    from repro_torch.kernels.chunk_attn import chunk_attn, chunk_attn_ref
+    from repro_torch.kernels.chunk_attn.ops import launch_plan
+
+    rag = dict(B=16, S=512, P=132, H=24, Hkv=8)
+    chat = dict(B=16, S=128, P=128, H=64, Hkv=4, chunk_pos=512)
+    cases = [chunk_case("rag_bf16", **rag), chunk_case("chat_g16_bf16", **chat, seed=1),
+             chunk_case("rag_int8_pool", **rag, kv="int8", seed=2),
+             chunk_case("hymba_g5_d64_window", B=4, S=256, P=64, H=25, Hkv=5, D=64,
+                        window=300, chunk_pos=700, seed=3)]
+    timed = {"rag_bf16": chunk_case("rag_bf16_as_launched", **rag, decode_rows=False),
+             "chat_g16_bf16": chunk_case("chat_g16_bf16_as_launched", **chat, seed=1,
+                                         decode_rows=False)}
+    from repro_torch.kernels.paged_attn.ops import sm_count
+
+    lines = {}
+    for c in cases:
+        kw = dict(window=c["window"], kv_scale=c["kv_scale"])
+        args = (c["q"], c["kp"], c["vp"], c["tables"], c["lengths"], c["q_lens"])
+        out = chunk_attn(*args, **kw)
+        ref = chunk_attn_ref(*args, **kw)
+        torch.cuda.synchronize()
+        v_max = c["vp"].float().abs().max().item() / (c["kv_scale"] or 1.0)
+        excess = chunk_tol_excess(out, ref, v_max)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (math.isfinite(err) and excess <= 1.0):
+            raise AssertionError(f"chunk_attn {c['name']}: |kernel - plain| exceeds its "
+                                 f"tolerance (max abs {err:.3e}, {excess:.2f}x)")
+        # the tolerance must be tight enough to see slot 0's rows one key short
+        L = c["lengths"].clone()
+        L[0] -= 1
+        short = chunk_tol_excess(out[:1], chunk_attn_ref(*args[:4], L, args[5], **kw)[:1], v_max)
+        if short <= 1.0:
+            raise AssertionError(f"chunk_attn {c['name']}: the tolerance passes a one-key "
+                                 f"length error ({short:.2f}x)")
+        if out[-2:].abs().max().item() != 0.0:
+            raise AssertionError(f"chunk_attn {c['name']}: idle slots not exactly 0")
+        B, S, H, D = c["q"].shape
+        line = {"case": c["name"], "max_abs_err": err, "v_max": v_max,
+                "max_tol_excess": excess, "one_key_short_excess": short,
+                "launch_plan": launch_plan(B, S, H // c["G"], c["G"], D,
+                                           c["kp"].element_size(), sm_count(0))}
+        if c["name"] == "rag_bf16":   # slot 0's last 300 rows alone, as a prefill
+            ql = c["q_lens"].clone()
+            ql[0] = 300
+            tile = chunk_attn(c["q"], c["kp"], c["vp"], c["tables"], c["lengths"], ql)
+            alone = chunk_attn(c["q"][:1, -300:].contiguous(), c["kp"], c["vp"],
+                               c["tables"][:1], c["lengths"][:1])
+            if not torch.equal(tile[0, -300:], alone[0]):
+                raise AssertionError("chunk_attn: a row's bits depend on its tile")
+            line["rows_independent_of_tile"] = True
+            line["decode_kernel_us_after"] = decode_kernel_us_after(c)
+        t = timed.get(c["name"])
+        if t is not None:
+            targs = (t["q"], t["kp"], t["vp"], t["tables"], t["lengths"], t["q_lens"])
+            ops, nbytes = chunk_work(t)
+            bound_s = max(ops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
+            p1 = graph_ms(lambda: chunk_attn_ref(*targs, **kw), 3)
+            k1 = graph_ms(lambda: chunk_attn(*targs, **kw), 50)
+            k2 = graph_ms(lambda: chunk_attn(*targs, **kw), 50)
+            p2 = graph_ms(lambda: chunk_attn_ref(*targs, **kw), 3)
+            lib = graph_ms(chunk_library_call(t), 20)
+            line.update(ms=min(k1, k2), bound_ms=bound_s * 1e3,
+                        bound_by="operations" if ops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S
+                        else "bytes", flops=ops, live_bytes=nbytes,
+                        plain_ms=min(p1, p2), library_ms=lib, kernel_ms_runs=[k1, k2],
+                        plain_ms_runs=[p1, p2], timer="cuda graph replay",
+                        tflop_s=ops / min(k1, k2) / 1e9,
+                        kernel_us_by_name=kernel_us(lambda: chunk_attn(*targs, **kw)))
+            if any("paged_attn" in name for name in line["kernel_us_by_name"]):
+                raise AssertionError("chunk_attn: a kernel name contains paged_attn")
+        lines[c["name"]] = line
+        log("chunk_attn check:", json.dumps(line))
+    return lines
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serving
 # ---------------------------------------------------------------------------
@@ -656,6 +866,12 @@ def load_phi4():
     return cfg, params, prompts, rng
 
 
+# chunk_attn launches and gather-core calls of the counted serving runs, by
+# path (:class:`counting`'s label), for the kernels line
+CHUNK_LAUNCHES_BY_PATH: dict = {}
+GATHER_CALLS_BY_PATH: dict = {}
+
+
 class counting:
     """Counts an engine's forwards and the kernels they launch, for one run.
 
@@ -666,18 +882,26 @@ class counting:
     ``paged_attention``'s launches are also tallied by query tile length
     (1 for decode rows, K+1 for a speculative verify tile) through a
     pass-through of the kernel wrapper; its own count is the one reported.
+    The paged core's chunk rows (a prefill chunk of more than one token, a
+    mixed tile) go to ``chunk_attn`` or to the gather core
+    (``nn/attention.py _gather_attend``, counted by a pass-through, with
+    the calls whose q is bf16 over a bf16 or int8 pool apart); :meth:`check`
+    files both counts under ``label`` for the kernels line.
     ``timed`` records each wrapped dispatch's wall time (synchronised)."""
 
-    def __init__(self, eng, timed=False):
-        self.eng, self.timed = eng, timed
-        self.forwards = self.prefill_forwards = 0
+    def __init__(self, eng, timed=False, label=""):
+        self.eng, self.timed, self.label = eng, timed, label
+        self.forwards = self.prefill_forwards = self.chunk_forwards = 0
+        self.gathers = self.bf16_gathers = 0
         self.times = {"_decode": [], "_mixed": [], "_guarded": [], "_prefill": []}
         self.by_q = {}
 
     def __enter__(self):
+        from repro_torch.kernels.chunk_attn import chunk_attn
         from repro_torch.kernels.paged_attn import ops as paged_ops
         from repro_torch.kernels.paged_attn import paged_attention
         from repro_torch.kernels.sc_mac import sc_mac_cuda
+        from repro_torch.nn import attention as attn_mod
         from repro_torch.serving import engine as engine_mod
         for attr in self.times:
             fn = getattr(self.eng, attr)
@@ -686,10 +910,13 @@ class counting:
                 if _attr == "_prefill":
                     self.prefill_forwards += 1
                     # a one-token chunk (the tail behind a shared prefix)
-                    # takes the decode kernel: (params, caches, tokens, ...)
+                    # takes the decode kernel: (params, caches, tokens, ...);
+                    # a longer one the chunk core
                     self.forwards += a[2].shape[-1] == 1
+                    self.chunk_forwards += a[2].shape[-1] > 1
                 else:
                     self.forwards += 1
+                    self.chunk_forwards += _attr == "_mixed"
                 if self.timed:
                     torch.cuda.synchronize()
                     t = time.perf_counter()
@@ -717,18 +944,31 @@ class counting:
             self.by_q[q] = self.by_q.get(q, 0) + 1
             return _kernel(*a, **k)
         paged_ops.paged_attn_cuda = tally
+        self._gather = attn_mod._gather_attend
+
+        def gather(q, kp, *a, _real=self._gather):
+            self.gathers += 1
+            self.bf16_gathers += (q.dtype == torch.bfloat16
+                                  and kp.dtype in (torch.bfloat16, torch.int8))
+            return _real(q, kp, *a)
+        attn_mod._gather_attend = gather
         paged_attention.launches = 0
+        chunk_attn.launches = 0
         sc_mac_cuda.launches = 0
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.kernels.chunk_attn import chunk_attn
         from repro_torch.kernels.paged_attn import ops as paged_ops
         from repro_torch.kernels.paged_attn import paged_attention
         from repro_torch.kernels.sc_mac import sc_mac_cuda
+        from repro_torch.nn import attention as attn_mod
         from repro_torch.serving import engine as engine_mod
         torch.cuda.synchronize()
         self.launches, self.sc_launches = paged_attention.launches, sc_mac_cuda.launches
+        self.chunk_launches = chunk_attn.launches
         paged_ops.paged_attn_cuda = self._kernel
+        attn_mod._gather_attend = self._gather
         for name, make in self._factories.items():
             setattr(engine_mod, name, make)
         return False
@@ -746,6 +986,18 @@ class counting:
         if sum(self.by_q.values()) != self.launches:
             raise AssertionError(f"launches by query length {self.by_q} do not add up "
                                  f"to {self.launches}")
+        if self.chunk_launches + self.gathers != n * self.chunk_forwards:
+            raise AssertionError(f"chunk core: {self.chunk_launches} chunk_attn launches + "
+                                 f"{self.gathers} gather-core calls != {n} paged layers x "
+                                 f"{self.chunk_forwards} prefill and mixed forwards")
+        if self.bf16_gathers:
+            raise AssertionError(f"{self.bf16_gathers} gather-core calls with a bf16 q over a "
+                                 f"bf16 or int8 pool, which chunk_attn should take")
+        label = self.label or cfg.name
+        for by_path, n_calls in ((CHUNK_LAUNCHES_BY_PATH, self.chunk_launches),
+                                 (GATHER_CALLS_BY_PATH, self.gathers)):
+            if n_calls:
+                by_path[label] = by_path.get(label, 0) + n_calls
 
 
 def _token(x):
@@ -790,7 +1042,9 @@ def serve(cfg, params, prompts, max_new, *, slots=8, max_len=1024, all_done=True
                     extras=None if extras is None else extras[i])
             for i, pr in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
-    with counting(eng, timed) as c:
+    label = " ".join([cfg.name] + [f"{k}={v}" for k, v in sorted(kw.items())
+                                   if isinstance(v, (bool, int, float, str))])
+    with counting(eng, timed, label) as c:
         t = time.perf_counter()
         summary = eng.run(reqs)
         torch.cuda.synchronize()
@@ -1491,7 +1745,7 @@ def frontdoor(cfg, params, prompts):
         return [Request(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
 
     ref_eng, ref_reqs = engine(), requests()
-    with counting(ref_eng) as c0:
+    with counting(ref_eng, label=f"{cfg.name} frontdoor engine.run") as c0:
         ref_eng.run(ref_reqs)
     c0.check(cfg)
     ref = check_streams(ref_reqs, max_new, cfg.vocab)
@@ -1542,7 +1796,7 @@ def frontdoor(cfg, params, prompts):
             except asyncio.CancelledError:
                 pass
 
-    with counting(eng) as c:
+    with counting(eng, label=f"{cfg.name} frontdoor") as c:
         t = time.perf_counter()
         outs, overflow, summ = asyncio.run(burst())
         wall = time.perf_counter() - t
@@ -2465,7 +2719,7 @@ def hymba_card_vs_cpu():
                             device=dev, prefill_chunk=16)
         reqs = make_requests(cfg, spec, seed=1)
         if dev == "cuda":
-            with counting(eng) as c:
+            with counting(eng, label="hymba_card_vs_cpu") as c:
                 eng.run(reqs)
             c.check(cfg)
         else:
@@ -4077,7 +4331,7 @@ def dryrun_phase(launches):
 
 
 # phases that ``--phases`` may pick, for a focused run; no argument runs all
-PICKABLE = ("paged_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
+PICKABLE = ("paged_attn", "chunk_attn", "act_pool", "sc_mac", "odin_linear", "serve_sc", "serve_spec",
             "frontdoor", "serve_moe", "serve_dense", "hymba_card", "serve_hybrid",
             "mla_card", "serve_mla", "xlstm_card", "serve_xlstm", "serve_nemotron",
             "musicgen_card", "vlm_card", "serve_musicgen", "serve_vlm", "train_card",
@@ -4092,6 +4346,8 @@ def run_picked(picked, name, smi):
     check); no kernels line.  Each phase's seconds are printed."""
     if "paged_attn" in picked:
         check_paged_attn()
+    if "chunk_attn" in picked:
+        check_chunk_attn()
     if "act_pool" in picked:
         check_act_pool()
     if "sc_mac" in picked:
@@ -4177,6 +4433,8 @@ def main(argv=None):
         return 2
     from repro_torch.kernels import build
     from repro_torch.kernels.act_pool.act_pool import SOURCE as ACT_POOL_SOURCE
+    from repro_torch.kernels.chunk_attn import chunk_attn as chunk_launches
+    from repro_torch.kernels.chunk_attn import ops as chunk_ops
     from repro_torch.kernels.int8_mm import int8_mm as int8_mod
     from repro_torch.kernels.paged_attn import ops as paged_ops
     from repro_torch.kernels.sc_mac import sc_mac as sc_mod
@@ -4191,8 +4449,8 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
     log(f"nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    texts = build.build_all([paged_ops.SOURCE, sc_mod.SOURCE, int8_mod.SOURCE,
-                             ACT_POOL_SOURCE])
+    texts = build.build_all([paged_ops.SOURCE, chunk_ops.SOURCE, sc_mod.SOURCE,
+                             int8_mod.SOURCE, ACT_POOL_SOURCE])
     log(f"kernel build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s")
     for source, text in texts.items():
         log(f"--- nvcc {source.name} ---\n{text.strip()}")
@@ -4203,6 +4461,9 @@ def main(argv=None):
     attn_lines = check_paged_attn()
     report = attn_lines["decode_bf16"]
     lap("paged_attn")
+    chunk_lines = check_chunk_attn()
+    chunk_by_path = {"kernel_check": chunk_launches.launches}
+    lap("chunk_attn")
     act_launches, act_lines = check_act_pool()
     lap("act_pool")
     sc_lines = check_sc_mac()
@@ -4312,6 +4573,20 @@ def main(argv=None):
                         for k, v in attn_lines.items() if "ms" in v},
         "launches_by_query_len_spec_paths": spec_by_q,
         "launches_by_query_len_moe_spec": moe_by_q,
+    }, {
+        "name": "chunk_attn", "route": "cuda", "status": "ok",
+        "source": "src/repro_torch/kernels/chunk_attn/csrc/chunk_attn.cu",
+        "replaces": "no Pallas kernel: the JAX package's jnp chunked-prefill core "
+                    "(src/repro/nn/attention.py:254 _paged_gqa_core, the gather "
+                    "+ sdpa inline at :312 and :345)",
+        "launches": sum(chunk_by_path.values()) + sum(CHUNK_LAUNCHES_BY_PATH.values()),
+        "launches_by_path": {**chunk_by_path, **CHUNK_LAUNCHES_BY_PATH},
+        "gather_core_calls_by_path": GATHER_CALLS_BY_PATH,
+        "decode_kernel_us_after": chunk_lines["rag_bf16"]["decode_kernel_us_after"],
+        "max_abs_err": max(x["max_abs_err"] for x in chunk_lines.values()),
+        "timed_cases": {k: {x: v.get(x) for x in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                  "library_ms", "tflop_s", "launch_plan")}
+                        for k, v in chunk_lines.items() if "ms" in v},
     }, {
         "name": "sc_mac", "route": "cuda", "status": "ok",
         "source": "src/repro_torch/kernels/sc_mac/csrc/sc_mac.cu",

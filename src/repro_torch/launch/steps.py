@@ -621,8 +621,10 @@ def make_serving_mixed_step(cfg: ModelConfig, top_k: int = 0) -> Callable:
     Every slot contributes ``q_lens[s]`` real query rows, right-aligned in
     the ``Q`` columns: a decode slot rides at ``q_lens = 1`` (flagged in
     ``decode``), a prefilling slot carries a chunk of its prompt.  Decode
-    rows take the paged kernel and prefill rows the gather+sdpa core, so each
-    emitted token equals what the separate dispatches produce.  Inactive
+    rows take the paged kernel and prefill rows the chunk core (the
+    ``chunk_attn`` kernel on the card for a bf16 q over a bf16 or int8 pool,
+    the gather+sdpa core otherwise), the same calls the separate dispatches
+    make, so each emitted token equals what they produce.  Inactive
     slots run with ``q_lens = 0``; their rows are pad rows.  ``lengths`` is
     the per-slot cached length before this dispatch.
     """

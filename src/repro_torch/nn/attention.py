@@ -8,8 +8,12 @@ The port of the JAX package's ``nn/attention.py``:
   pages to pool blocks, and the last block is the write-off target for
   inactive slots and pad rows (``init_paged_cache``);
 * decode rows attend in place through :func:`paged_attention` (the CUDA
-  kernel on the card); chunked prefill gathers the table's pages once and
-  runs the plain ``sdpa`` core, as the JAX package does with jnp;
+  kernel on the card); the rows of a chunked prefill or a mixed tile attend
+  in place through :func:`chunk_attn` (a flash-attention CUDA kernel) when q
+  is bf16 on the card and the pool bf16 or int8 (D 64 or 128, a block size
+  dividing 64); otherwise (the CPU, a float32 q or pool) chunked prefill
+  gathers the table's pages once and runs the plain ``sdpa`` core, as the
+  JAX package does with jnp;
 * the dense cache ``k/v [B, S_max, H_kv, D]`` or, with ``window > 0``, a
   ring buffer of ``window`` rows (``init_cache``), with a scalar ``pos``
   (static batch) or a per-slot ``pos [B]`` (serving); these run the plain
@@ -51,6 +55,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels.chunk_attn import chunk_attn, covers as chunk_attn_covers
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.nn.layers import apply_mrope, apply_rope, linear, linear_spec, rmsnorm
 from repro_torch.nn.module import ParamSpec
@@ -405,6 +410,18 @@ def _gather_attend(q, kp, vp, tables, positions, visible, window: int):
     return sdpa(q, ck, cv, positions, k_pos, window)
 
 
+def _chunk_core(q, kp, vp, tables, positions, visible, q_lens, window: int, kv_scale):
+    """The rows of a chunked prefill or a mixed tile: :func:`chunk_attn`
+    in place over the pool where it covers q and the pool (a bf16 q over a
+    bf16 or int8 pool on the card, a head dim and block size it takes),
+    else :func:`_gather_attend`.  ``q_lens`` (None: all S rows real) are the
+    rows the kernel attends; the gather core attends every row."""
+    if chunk_attn_covers(q, kp):
+        return chunk_attn(q, kp, vp, tables, visible, q_lens, window=window,
+                          kv_scale=kv_scale)
+    return _gather_attend(q, kp, vp, tables, positions, visible, window)
+
+
 @obs.ranged("attn/core")
 def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
                     spec_decode: bool = False, q_lens=None, q_decode=None):
@@ -413,16 +430,22 @@ def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
     ``pos`` is a per-slot [B] vector; ``tables [B, P]`` maps each slot's
     logical pages to pool blocks.  Decode (S == 1) and a speculative verify
     tile (``spec_decode``) run :func:`paged_attention`; chunked prefill
-    (S > 1) gathers the table's pages once and runs ``sdpa``.
+    (S > 1) runs :func:`_chunk_core`: :func:`chunk_attn` in place over the
+    pool (bf16 flash attention with float32 softmax and a split P, see its
+    kernel) where it covers q and the pool, else :func:`_gather_attend`, the
+    table's pages gathered once and the float32 ``sdpa``.
 
     ``q_lens`` (mixed prefill+decode dispatch): int32 [B] real query rows per
     slot, right-aligned in the S-row tile.  Pad rows write to the write-off
-    block and their (lower, possibly negative) positions hide every key from
-    them; ``pos`` advances by ``q_lens``.  The mixed tile runs BOTH cores
-    and selects per slot: prefill slots take the gather+sdpa numerics, slots
-    flagged in ``q_decode`` [B] take the paged kernel on the tile's last
-    column — exactly the dedicated decode dispatch's call, so mixed-on
-    streams equal mixed-off streams token for token.
+    block; ``pos`` advances by ``q_lens``.  The mixed tile runs BOTH cores
+    and selects per slot: prefill slots take the chunk core (which gives pad
+    rows 0, or under ``_gather_attend`` whatever their earlier positions
+    see; no real row reads them), slots flagged in ``q_decode`` [B] take the
+    paged kernel on the tile's last column — exactly the dedicated decode
+    dispatch's call, so mixed-on streams equal mixed-off streams token for
+    token.  The chunk kernel skips the flagged slots' rows (their ``q_lens``
+    go in as 0), since the decode output replaces them; a real row's result
+    does not depend on the tile it rides in.
 
     Writes for rows at or past the table's page span are redirected to the
     write-off block (a stale table entry there could alias another slot's
@@ -457,7 +480,8 @@ def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
     vp[bids, slot.long()] = _cache_write(v, cdt)
     new_cache = {"k_pool": kp, "v_pool": vp, "pos": new_pos}
     if q_lens is not None:
-        o = _gather_attend(q, kp, vp, tables, positions, new_pos, cfg.window)
+        rows = q_lens if q_decode is None else torch.where(q_decode, 0, q_lens)
+        o = _chunk_core(q, kp, vp, tables, positions, new_pos, rows, cfg.window, kv_scale)
         if q_decode is not None:
             od = paged_attention(q[:, -1], kp, vp, tables, new_pos,
                                  window=cfg.window, kv_scale=kv_scale)
@@ -470,7 +494,7 @@ def _paged_gqa_core(q, k, v, cfg: AttnConfig, positions, cache, tables,
         o = paged_attention(q, kp, vp, tables, new_pos,
                             window=cfg.window, kv_scale=kv_scale)
     else:
-        o = _gather_attend(q, kp, vp, tables, positions, new_pos, cfg.window)
+        o = _chunk_core(q, kp, vp, tables, positions, new_pos, None, cfg.window, kv_scale)
     return o, new_cache
 
 
